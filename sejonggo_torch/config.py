@@ -1,0 +1,98 @@
+"""Typed configuration (a copy of the parts of sejonggo_tpu/config.py the
+port uses: GoConfig, NetConfig, SearchConfig, Config and the presets).
+
+Kept as its own copy so the port never imports the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class GoConfig:
+    """Board/game parameters (reference conf.py:33-34)."""
+
+    size: int = 19
+    komi: float = 5.5
+
+    @property
+    def num_actions(self) -> int:
+        return self.size * self.size + 1  # + pass
+
+    @property
+    def max_moves(self) -> int:
+        # Reference move cap: 2 * SIZE^2 (self_play.py:181)
+        return 2 * self.size * self.size
+
+
+@dataclasses.dataclass(frozen=True)
+class NetConfig:
+    """AlphaZero residual network (reference conf.py:23, model.py:55-95)."""
+
+    blocks: int = 20
+    filters: int = 256
+    value_hidden: int = 256
+    policy_filters: int = 2
+    value_filters: int = 2
+    l2: float = 1e-4
+    compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    """MCTS parameters (reference conf.py:29-38, play.py:18)."""
+
+    simulations: int = 1600       # MCTS_SIMULATIONS
+    batch_size: int = 100         # MCTS_BATCH_SIZE: leaves per NN call
+    c_puct: float = 1.0
+    dirichlet_alpha: float = 0.03
+    dirichlet_epsilon: float = 0.25
+    # False replicates the reference's root-perspective backup;
+    # True is the AlphaZero negamax backup.
+    negamax: bool = False
+    policy_target: str = "prior"  # 'prior' | 'visits'
+    use_symmetry: bool = True
+    # Node capacity of the array tree; 0 = auto (simulations + slack).
+    max_nodes: int = 0
+
+    @property
+    def rounds(self) -> int:
+        return self.simulations // self.batch_size
+
+    def capacity(self) -> int:
+        if self.max_nodes:
+            return self.max_nodes
+        return 2 * self.simulations + self.batch_size + 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The slices of the JAX package's Config that the port runs."""
+
+    go: GoConfig = dataclasses.field(default_factory=GoConfig)
+    net: NetConfig = dataclasses.field(default_factory=NetConfig)
+    search: SearchConfig = dataclasses.field(default_factory=SearchConfig)
+
+
+def small_9x9(**overrides) -> Config:
+    """9x9 bring-up config (sejonggo_tpu.config.small_9x9)."""
+    cfg = Config(
+        go=GoConfig(size=9, komi=5.5),
+        net=NetConfig(blocks=4, filters=64, value_hidden=64,
+                      compute_dtype="float32"),
+        search=SearchConfig(simulations=64, batch_size=8),
+    )
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def strength_9x9(**overrides) -> Config:
+    """9x9 strength config (sejonggo_tpu.config.strength_9x9)."""
+    cfg = Config(
+        go=GoConfig(size=9, komi=5.5),
+        net=NetConfig(blocks=6, filters=96, value_hidden=96,
+                      compute_dtype="bfloat16"),
+        search=SearchConfig(simulations=96, batch_size=16,
+                            dirichlet_alpha=0.15, negamax=True,
+                            policy_target="visits", max_nodes=128),
+    )
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg

@@ -1,0 +1,103 @@
+"""AlphaZero residual policy/value net as an ``nn.Module`` (port of
+sejonggo_tpu/nets/azero.py).
+
+Reference model.py:55-95: 3x3 conv + BN + ReLU stem, residual blocks of
+two 3x3 conv + BN with a skip, a policy head (1x1 conv(2) + BN + ReLU ->
+Linear(N*N+1)) and a value head (1x1 conv(2) + BN + ReLU -> Linear(hidden)
+ReLU -> Linear(1) tanh).  BatchNorm keeps the Keras/flax settings
+(eps 1e-3; flax momentum .99 is torch momentum 0.01).
+
+The module computes in NCHW; its public input is NHWC (B, N, N, 17) like
+the JAX package.  The heads permute back to NHWC before flattening,
+because the flax Dense layers were trained on an NHWC flatten.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sejonggo_torch.config import NetConfig
+
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.01
+
+
+def _bn(channels: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class ResBlock(nn.Module):
+    def __init__(self, filters: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(filters, filters, 3, padding=1)
+        self.bn1 = _bn(filters)
+        self.conv2 = nn.Conv2d(filters, filters, 3, padding=1)
+        self.bn2 = _bn(filters)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return F.relu(y + x)
+
+
+class AZNet(nn.Module):
+    """Policy/value tower.  Input: (B, N, N, 17) feature planes (NHWC)."""
+
+    def __init__(self, size: int, blocks: int = 20, filters: int = 256,
+                 value_hidden: int = 256, policy_filters: int = 2,
+                 value_filters: int = 2):
+        super().__init__()
+        self.size = size
+        a = size * size + 1
+        self.stem_conv = nn.Conv2d(17, filters, 3, padding=1)
+        self.stem_bn = _bn(filters)
+        self.blocks = nn.ModuleList(ResBlock(filters) for _ in range(blocks))
+        self.policy_conv = nn.Conv2d(filters, policy_filters, 1)
+        self.policy_bn = _bn(policy_filters)
+        self.policy_out = nn.Linear(policy_filters * size * size, a)
+        self.value_conv = nn.Conv2d(filters, value_filters, 1)
+        self.value_bn = _bn(value_filters)
+        self.value_hidden = nn.Linear(value_filters * size * size, value_hidden)
+        self.value_out = nn.Linear(value_hidden, 1)
+
+    @classmethod
+    def from_config(cls, size: int, cfg: NetConfig) -> "AZNet":
+        return cls(size, blocks=cfg.blocks, filters=cfg.filters,
+                   value_hidden=cfg.value_hidden,
+                   policy_filters=cfg.policy_filters,
+                   value_filters=cfg.value_filters)
+
+    @staticmethod
+    def _flatten_nhwc(x):
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+    def forward(self, boards: torch.Tensor):
+        """(B, N, N, 17) -> (policy logits (B, N*N+1), values (B, 1)),
+        both float32."""
+        dtype = self.stem_conv.weight.dtype
+        x = boards.to(dtype).permute(0, 3, 1, 2)
+        h = F.relu(self.stem_bn(self.stem_conv(x)))
+        for block in self.blocks:
+            h = block(h)
+        p = F.relu(self.policy_bn(self.policy_conv(h)))
+        logits = self.policy_out(self._flatten_nhwc(p))
+        v = F.relu(self.value_bn(self.value_conv(h)))
+        v = F.relu(self.value_hidden(self._flatten_nhwc(v)))
+        value = torch.tanh(self.value_out(v))
+        return logits.float(), value.float()
+
+
+def make_predict_fn(model: AZNet):
+    """predict(boards (B, N, N, 17)) -> (softmax policy (B, N*N+1),
+    values (B, 1)), in eval mode and without autograd.  The model's
+    parameter dtype is the compute dtype (``model.to(torch.bfloat16)``
+    for bf16)."""
+    model.eval()
+
+    def predict(boards):
+        with torch.inference_mode():
+            logits, values = model(boards)
+        return torch.softmax(logits, dim=-1), values
+
+    return predict

@@ -1,0 +1,79 @@
+"""Build the CUDA kernels with one plain ``nvcc`` call and load them with
+``ctypes``.
+
+The sources (``sejonggo_torch/csrc/*.cu``) have a plain C interface and
+include no PyTorch header, so the build takes seconds and needs no
+PyTorch extension machinery (no lock files).  The library is built at
+first use into ``sejonggo_torch/build/``, which is deleted first so no
+stale or half-written product from an earlier run is ever loaded.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+LIB_NAME = "libsejonggo_kernels.so"
+# the kernels hold a board in ceil(N*N/64) registers of 64 bits, N <= 19
+MAX_SIZE = 19
+
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc on the machine with the card")
+
+
+def nvcc_command(out_path: str) -> list:
+    sources = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                     if f.endswith(".cu"))
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+            "-Xcompiler", "-fPIC", "-o", out_path] + sources
+
+
+def _build() -> str:
+    shutil.rmtree(BUILD_DIR, ignore_errors=True)
+    os.makedirs(BUILD_DIR)
+    out = os.path.join(BUILD_DIR, LIB_NAME)
+    cmd = nvcc_command(out)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    log = (proc.stdout + proc.stderr).strip()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    build_info.update(command=" ".join(cmd), seconds=seconds, log=log)
+    print(f"[sejonggo_torch] built {out} in {seconds:.2f} s", flush=True)
+    for line in log.splitlines():
+        print(f"[nvcc] {line}", flush=True)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per process) and load the kernel library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(_build())
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sejonggo_flood.argtypes = [p, p, p, p, i, i, p]
+    lib.sejonggo_flood.restype = i
+    lib.sejonggo_step_legal.argtypes = [p, p, p, p, p, p, i, i, p]
+    lib.sejonggo_step_legal.restype = i
+    _lib = lib
+    return lib

@@ -1,0 +1,17 @@
+from sejonggo_torch.search.mcts import (
+    advance_root_batch,
+    collect_leaves,
+    decide_batch,
+    expand_backup,
+    leaf_features,
+    policy_target_batch,
+    run_search,
+    simulate_round,
+)
+from sejonggo_torch.search.tree import (
+    Tree,
+    new_tree_batch,
+    sample_dirichlet,
+    tree_capacity,
+    tree_where,
+)

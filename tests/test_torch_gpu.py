@@ -1,0 +1,114 @@
+"""The CUDA kernels of sejonggo_torch against their plain PyTorch
+versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA card (the
+kernels have no CPU mode).  This file imports neither JAX nor the JAX
+package, so it runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from sejonggo_torch import ops
+from sejonggo_torch.actor import init_state, make_move_step
+from sejonggo_torch.config import SearchConfig
+from sejonggo_torch.goenv.positions import random_positions
+from sejonggo_torch.nets import dummy_predict_fn
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _random_masks(n, b, seed):
+    rng = np.random.RandomState(seed)
+    allowed = rng.rand(b, n, n) < 0.6
+    seeds = allowed & (rng.rand(b, n, n) < 0.15)
+    return seeds, allowed
+
+
+def _serpentine(n):
+    allowed = np.zeros((1, n, n), bool)
+    path = []
+    for y in range(n):
+        xs = range(n - 1) if y % 2 == 0 else range(n - 1, 0, -1)
+        path += [(y, x) for x in xs]
+    for y, x in path:
+        allowed[0, y, x] = True
+    seeds = np.zeros_like(allowed)
+    seeds[0, path[0][0], path[0][1]] = True
+    return seeds, allowed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,b", [(9, 3072), (9, 77), (19, 300), (5, 64), (2, 3)])
+def test_flood_kernel_matches_plain(cuda, n, b):
+    seeds, allowed = _random_masks(n, b, n + b)
+    s, a = torch.from_numpy(seeds).to(cuda), torch.from_numpy(allowed).to(cuda)
+    before = ops.flood_fixpoint.launches
+    got = ops.flood_fixpoint(s, a)
+    assert ops.flood_fixpoint.launches == before + 1
+    assert torch.equal(got, ops.flood_plain(s, a))
+    if n >= 3:
+        ls, la = (torch.from_numpy(x).to(cuda) for x in _serpentine(n))
+        assert torch.equal(ops.flood_fixpoint(ls, la), ops.flood_plain(ls, la))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,games,moves,contact", [
+    (9, 64, 60, 0.0), (9, 64, 60, 0.9), (19, 8, 80, 0.9), (13, 6, 40, 0.5),
+    (7, 5, 9, 0.5)])
+def test_gostep_kernel_matches_plain(cuda, n, games, moves, contact):
+    stones, sides, actions = random_positions(n, games, moves, n + moves,
+                                              contact=contact)
+    stones, sides, actions = stones.to(cuda), sides.to(cuda), actions.to(cuda)
+    before = ops.step_legal.launches
+    got_s, got_i = ops.step_legal(stones, sides, actions)
+    assert ops.step_legal.launches == before + 1
+    exp_s, exp_i = ops.step_legal_plain(stones, sides, actions)
+    assert torch.equal(got_s, exp_s)
+    assert torch.equal(got_i, exp_i)
+
+
+@pytest.mark.gpu
+def test_gostep_kernel_ko_case(cuda):
+    n = 9
+    grid = np.zeros((n, n), np.int8)
+    grid[0, 1] = grid[1, 0] = grid[1, 2] = 1
+    grid[1, 1] = grid[2, 0] = grid[2, 2] = grid[3, 1] = -1
+    stones = torch.from_numpy(grid[None]).to(cuda)
+    sides = torch.tensor([1], dtype=torch.int8, device=cuda)
+    actions = torch.tensor([2 * n + 1], dtype=torch.int32, device=cuda)
+    got_s, got_i = ops.step_legal(stones, sides, actions)
+    exp_s, exp_i = ops.step_legal_plain(stones, sides, actions)
+    assert torch.equal(got_s, exp_s) and torch.equal(got_i, exp_i)
+    assert bool(got_i[0, n + 1])
+
+
+@pytest.mark.gpu
+def test_move_step_kernel_path_matches_plain_path(cuda):
+    """Greedy, noise-free, identity-symmetry moves: the card (both
+    kernels) and the CPU (plain versions) give the same games."""
+    b = 16
+    search = SearchConfig(simulations=32, batch_size=16, use_symmetry=True,
+                          max_nodes=48)
+    step = make_move_step(dummy_predict_fn, search, 9, selfplay=False)
+    states = {d: init_state(b, 9, search, device=d) for d in (cuda, "cpu")}
+    ops.reset_kernel_launches()
+    for _ in range(5):
+        recs = {}
+        for d in (cuda, "cpu"):
+            states[d], recs[d], _ = step(
+                states[d], torch.ones(b, dtype=torch.bool, device=d),
+                torch.full((b,), float("nan"), device=d),
+                syms=[torch.zeros(b, dtype=torch.long)] * search.rounds)
+        assert torch.equal(recs[cuda]["actions"].cpu(), recs["cpu"]["actions"])
+        assert torch.equal(states[cuda].boards.cpu(), states["cpu"].boards)
+        for name, t in states[cuda].trees.fields().items():
+            assert torch.equal(t.cpu(), getattr(states["cpu"].trees, name)), name
+    assert ops.kernel_launches() == {"gostep": 2 * 5, "flood": 4 * 5}
