@@ -10,11 +10,15 @@ version on the card.
     python3 chip_smoke.py [--seed 0]
 
 Phases: 0 device, 1 build (nvcc + ctypes), 2 gostep kernel vs plain,
-3 flood kernel vs plain, 4 the move step at the bench point (net parity,
-launch counts, legality, env-steps/s), 5 the move step through the
-kernels vs through the plain versions.  Every phase prints one line with
-its elapsed seconds; the line before the last is the kernel table as
-JSON, the last line is {"ok": true, "device": {...}}.  Any failure ends
+3 flood kernel vs plain (each bit-exact at the main path's batch, at
+19x19 and at ragged batches, then timed on the device by CUDA-graph
+replay at the main path's batch, at one block of boards and at 19x19),
+4 the move step at the bench point (net parity, launch counts, legality,
+env-steps/s), 5 the move step through the kernels vs through the plain
+versions.  The kernels' error word is read after every kernel phase.
+Every phase prints one line with its elapsed seconds; the line before
+the last is the kernel table as JSON, the last line is
+{"ok": true, "device": {...}}.  Any failure ends
 the run with a nonzero exit code and no result line.  A watchdog ends a
 hang with a traceback and a nonzero exit.  Without CUDA, or without the
 sejonggo_torch package beside it, the script exits nonzero at once.
@@ -48,8 +52,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events,
-    after one warm-up call."""
+    """Mean time of ``fn`` over ``reps`` calls enqueued back to back from
+    Python, by CUDA events, after one warm-up call.  For a short kernel
+    this is the host's enqueue rate, not the kernel: see ``graph_ms``."""
     import torch
 
     fn()
@@ -64,109 +69,190 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device time of one call of ``fn`` (a raw kernel launch): ``reps``
+    calls captured in one CUDA graph, the graph replayed ``replays``
+    times between CUDA events, the median replay over ``reps``.  No
+    Python runs between the launches, so this is the kernels' time back
+    to back on the device.  The inputs are the same in every call, so
+    they are hot in L2 (as the leaf grids the search just wrote are)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return sorted(times)[len(times) // 2]
+
+
+def kernel_times(launch, block_launch, reps):
+    """(device ms, device ms at one block of boards, loop-mean ms) of a
+    raw launch, then the error word is read."""
+    from sejonggo_torch import ops
+
+    ms = graph_ms(launch, reps)
+    floor_ms = graph_ms(block_launch, reps)
+    loop_ms = time_ms(launch, reps)
+    ops.check_kernel_errors()
+    return ms, floor_ms, loop_ms
+
+
 def positions(size, games, moves, seed, dev):
-    """Half uniform, half contact-biased random legal games, generated on
-    the CPU with numpy and the port's plain engine, moved to ``dev``."""
+    """Half uniform, half contact-biased random legal games, played on
+    ``dev`` by the port's engine with moves chosen by numpy."""
     import torch
 
     from sejonggo_torch.goenv.positions import random_positions
 
     half = games // 2
-    parts = [random_positions(size, half, moves, seed, contact=0.0),
+    parts = [random_positions(size, half, moves, seed, contact=0.0,
+                              device=dev),
              random_positions(size, games - half, moves, seed + 1,
-                              contact=0.9)]
-    return tuple(torch.cat([p[i] for p in parts]).to(dev) for i in range(3))
+                              contact=0.9, device=dev)]
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
 
 
-def phase_gostep(seed, dev, shapes=((9, 1024, 96), (19, 32, 64))):
+def phase_gostep(seed, dev, shapes=((9, 1025, 96, 98304), (19, 32, 64, 2048))):
     """gostep kernel vs step_legal_plain on the card: bit-exact at the
-    bench's leaf batch (98,304 = 1024 games x 96 moves, 9x9) and at
-    19x19."""
+    bench's leaf batch (98,304 of 1025 games x 96 moves, 9x9), at 19x19
+    and at ragged batch sizes; device times at both sizes."""
     import torch
 
-    from sejonggo_torch.ops import gostep
+    from sejonggo_torch import ops
+    from sejonggo_torch.ops import _build, gostep
 
-    row = None
-    for size, games, moves in shapes:
+    row = dict(name="gostep", route="cuda",
+               source="sejonggo_torch/csrc/gostep.cu",
+               replaces="sejonggo_tpu/ops/gostep.py:171", library_ms=None,
+               bound_by="bytes", max_abs_err=0.0)
+    for size, games, moves, b in shapes:
         stones, sides, actions = positions(size, games, moves, seed, dev)
-        b = stones.shape[0]
-        got_s, got_i = gostep.step_legal(stones, sides, actions)
-        exp_s, exp_i = gostep.step_legal_plain(stones, sides, actions)
-        torch.cuda.synchronize()
-        bad = int((got_s != exp_s).sum()) + int((got_i != exp_i).sum())
-        err = max(float((got_s.int() - exp_s.int()).abs().max()),
-                  float((got_i.int() - exp_i.int()).abs().max()))
-        log(f"gostep {size}x{size} B={b}: mismatches {bad}, max_abs_err {err}, "
-            f"launches so far {gostep.step_legal.launches}")
-        check(bad == 0, f"gostep kernel differs from plain at {size}x{size}")
+        for nb in (b, 1, 31, 33, 3071, b + 1):
+            got_s, got_i = gostep.step_legal(stones[:nb], sides[:nb],
+                                             actions[:nb])
+            exp_s, exp_i = gostep.step_legal_plain(stones[:nb], sides[:nb],
+                                                   actions[:nb])
+            ops.check_kernel_errors(dev)
+            bad = int((got_s != exp_s).sum()) + int((got_i != exp_i).sum())
+            err = max(float((got_s.int() - exp_s.int()).abs().max()),
+                      float((got_i.int() - exp_i.int()).abs().max()))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if nb == b:
+                log(f"gostep {size}x{size} B={b}: mismatches {bad}, "
+                    f"max_abs_err {err}, launches so far "
+                    f"{gostep.step_legal.launches}")
+            check(bad == 0, f"gostep kernel differs from plain at "
+                  f"{size}x{size} B={nb}")
+        stones, sides, actions = stones[:b], sides[:b], actions[:b]
+        out_s = torch.empty_like(stones)
+        out_i = torch.empty((b, size * size + 1), dtype=torch.bool, device=dev)
+        flag = ops.errors.error_word(dev)
+        per_block = _build.load_library().sejonggo_step_legal_block(size)
+        ms, floor_ms, loop_ms = kernel_times(
+            lambda: gostep._launch(stones, sides, actions, out_s, out_i, flag),
+            lambda: gostep._launch(stones[:per_block], sides[:per_block],
+                                   actions[:per_block], out_s[:per_block],
+                                   out_i[:per_block], flag),
+            50)
+        nbytes = (stones.numel() + sides.numel() + 4 * actions.numel()
+                  + out_s.numel() + out_i.numel())
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"gostep {size}x{size} B={b}: device {ms:.5f} ms (graph replay, "
+            f"hot L2), loop-mean {loop_ms:.5f} ms, one block of {per_block} "
+            f"boards {floor_ms:.5f} ms, bound {bound_ms:.5f} ms "
+            f"({nbytes} bytes)")
         if size == 9:
-            out_s = torch.empty_like(stones)
-            out_i = torch.empty((b, size * size + 1), dtype=torch.bool,
-                                device=dev)
-            flag = torch.zeros(1, dtype=torch.int32, device=dev)
-            ms = time_ms(lambda: gostep._launch(stones, sides, actions,
-                                                out_s, out_i, flag), 50)
             plain_ms = time_ms(
                 lambda: gostep.step_legal_plain(stones, sides, actions), 3)
-            check(int(flag.item()) == 0, "gostep hit an iteration cap")
-            nbytes = (stones.numel() + sides.numel() + 4 * actions.numel()
-                      + out_s.numel() + out_i.numel())
-            row = dict(
-                name="gostep", route="cuda",
-                source="sejonggo_torch/csrc/gostep.cu",
-                replaces="sejonggo_tpu/ops/gostep.py:171",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                library_ms=None)
-            log(f"gostep B={b}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({nbytes} bytes)")
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       loop_ms=loop_ms, floor_ms=floor_ms, batch=b)
+        else:
+            row.update({f"ms_{size}x{size}": ms,
+                        f"bound_ms_{size}x{size}": bound_ms,
+                        f"batch_{size}x{size}": b})
     return row
 
 
 def phase_flood(seed, dev, shapes=((9, 64, 48), (19, 16, 32))):
     """flood kernel vs flood_plain on the card: bit-exact at the move
-    step's batch (3072 = 64 games x 48 moves, 9x9) and at 19x19."""
+    step's batch (3072 = 64 games x 48 moves, 9x9), at 19x19 and at
+    ragged batch sizes up to 98,305 (random regions); device times at
+    both sizes."""
     import torch
 
-    from sejonggo_torch.ops import flood
+    from sejonggo_torch import ops
+    from sejonggo_torch.ops import _build, flood
 
-    row = None
+    row = dict(name="flood", route="cuda",
+               source="sejonggo_torch/csrc/flood.cu",
+               replaces="sejonggo_tpu/ops/flood.py:70", library_ms=None,
+               bound_by="bytes", max_abs_err=0.0)
     for size, games, moves in shapes:
-        err = 0.0
         stones, sides, _ = positions(size, games, moves, seed + 7, dev)
         own = stones == sides[:, None, None]
         empty = stones == 0
         # the engine's capture floods: stones that reach a liberty, and
         # random regions
-        g = torch.Generator(device="cpu").manual_seed(seed)
-        allowed_r = (torch.rand(stones.shape, generator=g) < 0.6).to(dev)
-        seed_r = allowed_r & (torch.rand(stones.shape, generator=g) < 0.1).to(dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        shape = (98305, size, size)
+        allowed_r = torch.rand(shape, generator=g, device=dev) < 0.6
+        seed_r = allowed_r & (torch.rand(shape, generator=g, device=dev) < 0.1)
         cases = [(own & flood.dilate(empty), own), (seed_r, allowed_r)]
+        b = stones.shape[0]
         for s, a in cases:
-            got = flood.flood_fixpoint(s, a)
-            exp = flood.flood_plain(s, a)
-            torch.cuda.synchronize()
-            bad = int((got != exp).sum())
-            err = max(err, float((got.int() - exp.int()).abs().max()))
-            log(f"flood {size}x{size} B={s.shape[0]}: mismatches {bad}, "
-                f"launches so far {flood.flood_fixpoint.launches}")
-            check(bad == 0, f"flood kernel differs from plain at {size}x{size}")
+            for nb in (s.shape[0], 1, 31, 33, 3071):
+                got = flood.flood_fixpoint(s[:nb], a[:nb])
+                exp = flood.flood_plain(s[:nb], a[:nb])
+                ops.check_kernel_errors(dev)
+                bad = int((got != exp).sum())
+                row["max_abs_err"] = max(
+                    row["max_abs_err"], float((got.int() - exp.int()).abs().max()))
+                if nb == s.shape[0]:
+                    log(f"flood {size}x{size} B={nb}: mismatches {bad}, "
+                        f"launches so far {flood.flood_fixpoint.launches}")
+                check(bad == 0, f"flood kernel differs from plain at "
+                      f"{size}x{size} B={nb}")
+        s, a = cases[0]
+        out = torch.empty_like(s)
+        flag = ops.errors.error_word(dev)
+        per_block = _build.load_library().sejonggo_flood_block(size)
+        ms, floor_ms, loop_ms = kernel_times(
+            lambda: flood._launch(s, a, out, flag),
+            lambda: flood._launch(s[:per_block], a[:per_block],
+                                  out[:per_block], flag),
+            200)
+        nbytes = 3 * s.numel()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"flood {size}x{size} B={b}: device {ms:.5f} ms (graph replay, "
+            f"hot L2), loop-mean {loop_ms:.5f} ms, one block of {per_block} "
+            f"boards {floor_ms:.5f} ms, bound {bound_ms:.6f} ms "
+            f"({nbytes} bytes)")
         if size == 9:
-            s, a = cases[0]
-            out = torch.empty_like(s)
-            flag = torch.zeros(1, dtype=torch.int32, device=dev)
-            ms = time_ms(lambda: flood._launch(s, a, out, flag), 200)
             plain_ms = time_ms(lambda: flood.flood_plain(s, a), 5)
-            nbytes = 3 * s.numel()
-            row = dict(
-                name="flood", route="cuda",
-                source="sejonggo_torch/csrc/flood.cu",
-                replaces="sejonggo_tpu/ops/flood.py:70",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                library_ms=None)
-            log(f"flood B={s.shape[0]}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.2f} ms, bound {row['bound_ms']:.5f} ms")
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       loop_ms=loop_ms, floor_ms=floor_ms, batch=b)
+        else:
+            row.update({f"ms_{size}x{size}": ms,
+                        f"bound_ms_{size}x{size}": bound_ms,
+                        f"batch_{size}x{size}": b})
     return row
 
 
@@ -302,6 +388,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
+        from sejonggo_torch import ops
         from sejonggo_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: sejonggo_torch not importable ({e}); run from "
@@ -336,15 +423,17 @@ def main() -> int:
         f"{rate:.1f} env-steps/s at B=3072, 64 sims, bf16 net on {card}")
     t = time.perf_counter()
     phase_kernel_vs_plain(dev)
+    ops.check_kernel_errors(dev)
     log(f"phase 5 kernel vs plain path: ok in {time.perf_counter() - t:.2f} s")
 
     gostep_row["launches"] = counts["gostep"]
     flood_row["launches"] = counts["flood"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (gostep_row, flood_row)]}),
-          flush=True)
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, **{k: v for k, v in r.items()
+                                       if k not in keys}}
+        for r in (gostep_row, flood_row)]}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

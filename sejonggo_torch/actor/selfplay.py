@@ -20,6 +20,7 @@ import torch
 from sejonggo_torch._device import resolve_device
 from sejonggo_torch.config import SearchConfig
 from sejonggo_torch.goenv import engine
+from sejonggo_torch.ops import check_kernel_errors
 from sejonggo_torch.search import (advance_root_batch, decide_batch,
                                    new_tree_batch, policy_target_batch,
                                    run_search, sample_dirichlet, tree_where)
@@ -117,6 +118,8 @@ def make_move_step(predict_fn: Callable, search: SearchConfig, size: int,
             done=state.done | resign_now | ended_bothpass,
             skipped_last=torch.where(move_valid, is_pass, state.skipped_last))
         flags = dict(resign_now=resign_now, ended_bothpass=ended_bothpass)
+        # the kernels do not synchronise: read their error word once a move
+        check_kernel_errors(dev)
         return new_state, record, flags
 
     return move_step

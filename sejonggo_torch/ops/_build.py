@@ -41,7 +41,7 @@ def nvcc_command(out_path: str) -> list:
     sources = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
                      if f.endswith(".cu"))
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+            "-std=c++17", "-O3", "--threads", "0", "-Xptxas", "-v", "-shared",
             "-Xcompiler", "-fPIC", "-o", out_path] + sources
 
 
@@ -75,5 +75,9 @@ def load_library() -> ctypes.CDLL:
     lib.sejonggo_flood.restype = i
     lib.sejonggo_step_legal.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.sejonggo_step_legal.restype = i
+    lib.sejonggo_flood_block.argtypes = [i]
+    lib.sejonggo_flood_block.restype = i
+    lib.sejonggo_step_legal_block.argtypes = [i]
+    lib.sejonggo_step_legal_block.restype = i
     _lib = lib
     return lib

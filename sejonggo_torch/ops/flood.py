@@ -16,6 +16,8 @@ import ctypes
 
 import torch
 
+from sejonggo_torch.ops import errors
+
 
 def dilate(m: torch.Tensor) -> torch.Tensor:
     """4-neighbourhood dilation of a (..., N, N) bool mask: a point is set
@@ -77,6 +79,8 @@ def flood_fixpoint(seed: torch.Tensor, allowed: torch.Tensor) -> torch.Tensor:
     CUDA tensors run the hand-written kernel (one thread per board,
     bitboards in registers, see csrc/flood.cu); CPU tensors run
     ``flood_plain``.  There is no fallback from CUDA to the plain version.
+    The launch does not synchronise: a hit iteration cap sets the error
+    word, which ``errors.check_kernel_errors`` reads.
     """
     _check_masks(seed, allowed)
     if not seed.is_cuda:
@@ -91,11 +95,8 @@ def flood_fixpoint(seed: torch.Tensor, allowed: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(seed)
     if b == 0:
         return out
-    err = torch.zeros(1, dtype=torch.int32, device=seed.device)
-    _launch(seed, allowed, out, err)
+    _launch(seed, allowed, out, errors.error_word(seed.device))
     flood_fixpoint.launches += 1
-    if int(err.item()) != 0:
-        raise RuntimeError("flood kernel hit its N*N+1 iteration cap")
     return out
 
 

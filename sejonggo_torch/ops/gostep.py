@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from sejonggo_torch.goenv import engine
+from sejonggo_torch.ops import errors
 
 
 def step_legal_plain(stones: torch.Tensor, sides: torch.Tensor,
@@ -66,7 +67,9 @@ def step_legal(stones: torch.Tensor, sides: torch.Tensor,
     """(B, N, N) int8 signed parent grids, (B,) sides (+-1), (B,) actions
     in [0, N*N] -> (new grids (B, N, N) int8, illegal (B, N*N+1) bool for
     the next mover).  CUDA tensors run the kernel, CPU tensors the plain
-    version; there is no fallback from CUDA to the plain version."""
+    version; there is no fallback from CUDA to the plain version.  The
+    launch does not synchronise: a hit iteration cap sets the error word,
+    which ``errors.check_kernel_errors`` reads."""
     _check(stones, sides, actions)
     if not stones.is_cuda:
         return step_legal_plain(stones, sides, actions)
@@ -83,11 +86,9 @@ def step_legal(stones: torch.Tensor, sides: torch.Tensor,
                               device=stones.device)
     if b == 0:
         return out_stones, out_illegal
-    err = torch.zeros(1, dtype=torch.int32, device=stones.device)
-    _launch(stones, sides, actions, out_stones, out_illegal, err)
+    _launch(stones, sides, actions, out_stones, out_illegal,
+            errors.error_word(stones.device))
     step_legal.launches += 1
-    if int(err.item()) != 0:
-        raise RuntimeError("gostep kernel hit an N*N+1 iteration cap")
     return out_stones, out_illegal
 
 

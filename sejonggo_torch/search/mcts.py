@@ -380,12 +380,17 @@ def advance_root_batch(trees: Tree, actions: torch.Tensor,
 
     # child_idx from (parent, action) of each live non-root node; edges
     # whose child was truncated stay -1.  Slots of inactive leaves carry
-    # no action (-1) and are no edge (they survive only in an invalid
-    # re-root at the old root, whose tree the caller discards)
-    ok = live & (iota[None] > 0) & (pa >= 0)
-    flat = torch.where(ok, par * a_dim + pa.long(), c * a_dim)
+    # the action -1 (they survive only in an invalid re-root at the old
+    # root); as in JAX's index normalisation it lands on the last edge,
+    # the pass.  Where several slots share an edge the highest slot wins,
+    # as in JAX's in-order scatter on the CPU; amax makes that rule
+    # deterministic on every device
+    ok = live & (iota[None] > 0)
+    edge = torch.where(pa < 0, pa + a_dim, pa).long()
+    flat = torch.where(ok, par * a_dim + edge, c * a_dim)
     ci = torch.full((b, c * a_dim + 1), -1, dtype=torch.int32, device=dev)
-    ci.scatter_(1, flat, iota[None].expand(b, c).to(torch.int32))
+    ci.scatter_reduce_(1, flat, iota[None].expand(b, c).to(torch.int32),
+                       "amax")
     ci = ci[:, :c * a_dim].reshape(b, c, a_dim)
 
     out = Tree(

@@ -96,6 +96,36 @@ def sample_dirichlet(alpha: float, batch: int, size: int,
     return torch.softmax(log_g, dim=-1)
 
 
+def mix_noise(p: torch.Tensor, noise: torch.Tensor,
+              epsilon: float) -> torch.Tensor:
+    """float32 (1 - epsilon) * p + epsilon * noise, rounded once.
+
+    XLA's CPU backend contracts the JAX package's mix into
+    fma(1 - epsilon, p, epsilon * noise): the float32 product
+    epsilon * noise plus the exact product (1 - epsilon) * p, rounded
+    once.  Both addends are exact in float64; TwoSum gives their sum s
+    and its rounding error e exactly, and rounding s to float32 is
+    correct except where s lies exactly halfway between two float32
+    values and e breaks the tie.  XLA's CPU code also flushes float32
+    subnormals to zero, in its inputs and its results; so does this."""
+    def flush(v):
+        return torch.where(v.abs() < torch.finfo(torch.float32).tiny, 0.0, v)
+
+    keep = float(torch.tensor(1.0 - epsilon, dtype=torch.float32))
+    x = keep * flush(p).to(torch.float64)
+    y = flush(epsilon * flush(noise)).to(torch.float64)
+    s = x + y
+    bp = s - x
+    e = (x - (s - bp)) + (y - bp)
+    r = s.to(torch.float32)
+    above = r.to(torch.float64) > s
+    lo = torch.where(above, torch.nextafter(r, torch.full_like(r, -torch.inf)), r)
+    hi = torch.where(above, r, torch.nextafter(r, torch.full_like(r, torch.inf)))
+    mid = (s - lo.to(torch.float64)) == (hi.to(torch.float64) - s)
+    return flush(torch.where(mid & (e > 0), hi,
+                             torch.where(mid & (e < 0), lo, r)))
+
+
 def empty_tree_batch(batch: int, capacity: int, size: int, device) -> Tree:
     a = size * size + 1
     z = dict(device=device)
@@ -131,7 +161,7 @@ def new_tree_batch(policies: torch.Tensor, boards: torch.Tensor,
     legal = ~engine.illegal_moves_mask_batch(boards)
     p = policies.to(torch.float32)
     if noise is not None:
-        p = (1.0 - epsilon) * p + epsilon * noise
+        p = mix_noise(p, noise.to(torch.float32), epsilon)
     tree.root_board = boards.to(torch.int8).clone()
     tree.node_stones[:, 0] = engine.signed_stones(boards)
     tree.node_side[:, 0] = boards[:, 0, 0, 16].to(torch.int8)

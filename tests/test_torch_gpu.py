@@ -45,6 +45,17 @@ def _serpentine(n):
     return seeds, allowed
 
 
+def _unaligned(x):
+    """A copy of ``x`` whose data starts one byte past a 16-byte boundary
+    (the kernels then take their non-bulk copy path)."""
+    flat = torch.empty(x.numel() * x.element_size() + 16, dtype=torch.uint8,
+                       device=x.device)
+    y = flat[1:1 + x.numel() * x.element_size()].view(x.dtype).view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == 1 and y.is_contiguous()
+    return y
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,b", [(9, 3072), (9, 77), (19, 300), (5, 64), (2, 3)])
 def test_flood_kernel_matches_plain(cuda, n, b):
@@ -53,10 +64,30 @@ def test_flood_kernel_matches_plain(cuda, n, b):
     before = ops.flood_fixpoint.launches
     got = ops.flood_fixpoint(s, a)
     assert ops.flood_fixpoint.launches == before + 1
+    ops.check_kernel_errors(cuda)
     assert torch.equal(got, ops.flood_plain(s, a))
     if n >= 3:
         ls, la = (torch.from_numpy(x).to(cuda) for x in _serpentine(n))
         assert torch.equal(ops.flood_fixpoint(ls, la), ops.flood_plain(ls, la))
+        ops.check_kernel_errors(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 31, 33, 3071, 98305])
+@pytest.mark.parametrize("n", [2, 5, 9, 11, 15, 19])
+def test_flood_kernel_ragged_batches_every_width(cuda, n, b):
+    """W = ceil(N*N/64) from 1 to 6, batches that leave a ragged last
+    block, inputs on and off 16-byte alignment."""
+    if n * n * b > 8_000_000:
+        b = 8_000_000 // (n * n)   # keep the plain version's memory small
+    g = torch.Generator(device=cuda).manual_seed(n * 1000 + b)
+    a = torch.rand((b, n, n), generator=g, device=cuda) < 0.6
+    s = a & (torch.rand((b, n, n), generator=g, device=cuda) < 0.1)
+    exp = ops.flood_plain(s, a)
+    assert torch.equal(ops.flood_fixpoint(s, a), exp)
+    ops.check_kernel_errors(cuda)
+    assert torch.equal(ops.flood_fixpoint(_unaligned(s), _unaligned(a)), exp)
+    ops.check_kernel_errors(cuda)
 
 
 @pytest.mark.gpu
@@ -70,9 +101,59 @@ def test_gostep_kernel_matches_plain(cuda, n, games, moves, contact):
     before = ops.step_legal.launches
     got_s, got_i = ops.step_legal(stones, sides, actions)
     assert ops.step_legal.launches == before + 1
+    ops.check_kernel_errors(cuda)
     exp_s, exp_i = ops.step_legal_plain(stones, sides, actions)
     assert torch.equal(got_s, exp_s)
     assert torch.equal(got_i, exp_i)
+
+
+_POSITIONS = {}
+
+
+def _positions(n, count):
+    """``count`` positions of contact-biased random games at size n (made
+    once per size on the CPU and cut to the count)."""
+    if n not in _POSITIONS or _POSITIONS[n][0].shape[0] < count:
+        moves = min(2 * n * n, 96)
+        games = -(-count // moves)
+        _POSITIONS[n] = random_positions(n, games, moves, n, contact=0.7)
+    return tuple(x[:count] for x in _POSITIONS[n])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 31, 33, 3071, 98305])
+@pytest.mark.parametrize("n", [2, 5, 9, 11, 15, 19])
+def test_gostep_kernel_ragged_batches_every_width(cuda, n, b):
+    """W = ceil(N*N/64) from 1 to 6, batches that leave a ragged last
+    block, inputs on and off 16-byte alignment."""
+    if n * n * b > 8_000_000:
+        b = 8_000_000 // (n * n)   # keep the CPU game generation short
+    stones, sides, actions = (x.to(cuda) for x in _positions(n, b))
+    exp_s, exp_i = ops.step_legal_plain(stones, sides, actions)
+    got_s, got_i = ops.step_legal(stones, sides, actions)
+    ops.check_kernel_errors(cuda)
+    assert torch.equal(got_s, exp_s) and torch.equal(got_i, exp_i)
+    got_s, got_i = ops.step_legal(_unaligned(stones), sides, actions)
+    ops.check_kernel_errors(cuda)
+    assert torch.equal(got_s, exp_s) and torch.equal(got_i, exp_i)
+
+
+@pytest.mark.gpu
+def test_kernel_error_word_raises_once_set(cuda):
+    """A set error word raises at the next check and is reset by it; the
+    kernels themselves never synchronise the host."""
+    from sejonggo_torch.ops import errors
+
+    ops.check_kernel_errors(cuda)
+    word = errors.error_word(cuda)
+    word.fill_(errors.FLOOD)
+    with pytest.raises(RuntimeError, match="flood"):
+        ops.check_kernel_errors(cuda)
+    assert int(word.item()) == 0
+    ops.check_kernel_errors(cuda)
+    word.fill_(errors.GOSTEP)
+    with pytest.raises(RuntimeError, match="gostep"):
+        ops.check_kernel_errors()
 
 
 @pytest.mark.gpu
@@ -85,6 +166,7 @@ def test_gostep_kernel_ko_case(cuda):
     sides = torch.tensor([1], dtype=torch.int8, device=cuda)
     actions = torch.tensor([2 * n + 1], dtype=torch.int32, device=cuda)
     got_s, got_i = ops.step_legal(stones, sides, actions)
+    ops.check_kernel_errors(cuda)
     exp_s, exp_i = ops.step_legal_plain(stones, sides, actions)
     assert torch.equal(got_s, exp_s) and torch.equal(got_i, exp_i)
     assert bool(got_i[0, n + 1])
@@ -112,3 +194,6 @@ def test_move_step_kernel_path_matches_plain_path(cuda):
         for name, t in states[cuda].trees.fields().items():
             assert torch.equal(t.cpu(), getattr(states["cpu"].trees, name)), name
     assert ops.kernel_launches() == {"gostep": 2 * 5, "flood": 4 * 5}
+    # every move read the error word; a normal game leaves it 0
+    from sejonggo_torch.ops import errors
+    assert int(errors.error_word(cuda).item()) == 0

@@ -83,11 +83,11 @@ def test_build_is_one_plain_nvcc_call(monkeypatch):
 
     monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
     cmd = _build.nvcc_command(os.path.join(_build.BUILD_DIR, _build.LIB_NAME))
-    assert cmd[:11] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
-                        "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-                        "-Xcompiler", "-fPIC", "-o"]
-    assert cmd[11].endswith("sejonggo_torch/build/libsejonggo_kernels.so")
-    assert sorted(os.path.basename(c) for c in cmd[12:]) == ["flood.cu", "gostep.cu"]
+    assert cmd[:13] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", "--threads", "0", "-Xptxas",
+                        "-v", "-shared", "-Xcompiler", "-fPIC", "-o"]
+    assert cmd[13].endswith("sejonggo_torch/build/libsejonggo_kernels.so")
+    assert sorted(os.path.basename(c) for c in cmd[14:]) == ["flood.cu", "gostep.cu"]
 
 
 def test_smoke_refuses_without_card_or_package(tmp_path):

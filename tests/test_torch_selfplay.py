@@ -50,8 +50,10 @@ def _jax_draws(key, search, b, size, selfplay):
 
 
 def _close(j, t, what):
-    """Priors with root noise: XLA fuses (1-eps)*p + eps*noise into one
-    multiply-add, PyTorch rounds twice, so the last bit may differ."""
+    """Priors with root noise: the port mixes them bit-exactly
+    (tests/test_torch_reroot.py), but the noise handed to it here comes
+    from a separate eager JAX draw, whose float32 gamma arithmetic may
+    differ in the last bit from the draw fused into the jitted step."""
     np.testing.assert_allclose(np.asarray(j), np.asarray(t), rtol=1e-6,
                                atol=0, err_msg=str(what))
 
@@ -68,9 +70,9 @@ def _compare(jstate, jrec, tstate, trec, move):
     assert np.array_equal(np.asarray(jdone), tstate.done.numpy()), move
     assert np.array_equal(np.asarray(jskip), tstate.skipped_last.numpy()), move
     # trees with valid False are never read again (the next move builds
-    # fresh ones); where the chosen child was unexpanded the JAX re-root
-    # wraps the action -1 of inactive leaf slots to the pass edge, so
-    # only the reusable trees are compared
+    # fresh ones), so only the reusable trees are compared here; the
+    # re-root of every tree, valid or not, is held exact against JAX in
+    # tests/test_torch_reroot.py
     keep = np.asarray(jvalid)
     for f in dataclasses.fields(tstate.trees):
         j = np.asarray(getattr(jtrees, f.name))[keep]
