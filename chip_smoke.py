@@ -3,19 +3,30 @@
 
 Drives the port's 9x9 self-play move step (the path bench.py measures for
 the JAX package: B=3072 games, 64 simulations in rounds of 32 leaves, 82
-tree slots, a 4-block x 64-filter net with random weights made from
---seed) and holds each hand-written CUDA kernel against its plain PyTorch
-version on the card.
+tree slots, a 4-block x 64-filter bf16 net with random weights made from
+--seed), then the serving half of a generation at the strength_9x9_xl
+point from the committed model_291 checkpoint (6x96, bf16): continuous
+self-play and the gate.  Holds each hand-written CUDA kernel against its
+plain PyTorch version on the card.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases: 0 device, 1 build (nvcc + ctypes), 2 gostep kernel vs plain,
 3 flood kernel vs plain (each bit-exact at the main path's batch, at
-19x19 and at ragged batches, then timed on the device by CUDA-graph
-replay at the main path's batch, at one block of boards and at 19x19),
-4 the move step at the bench point (net parity, launch counts, legality,
-env-steps/s), 5 the move step through the kernels vs through the plain
-versions.  The kernels' error word is read after every kernel phase.
+the xl self-play and gate batches, at 19x19 and at ragged batches, then
+timed on the device by CUDA-graph replay at the main path's batch, at
+the xl batches, at one block of boards and at 19x19), 4 the move step
+at the bench point (net parity, launch counts, legality, env-steps/s),
+5 the move step through the kernels vs through the plain versions, 6
+model_291 read by the port's msgpack reader (finite predictions, net ms
+per 12,288 boards), 7 the gate: 128 two-tree games of model_291 against
+seeded random weights (promote must hold, launch counts, the games
+replayed through the plain engine: moves, winners, value targets), whose
+games warm the resign calibrator, 8 continuous self-play at xl (384
+slots, 192 simulations, live resign thresholds) until 8 games finish,
+one of them played out (legal moves, games replayed through the plain engine, winners, resign
+winners, launch counts), 9 one xl step twice (bit-equal trees).  The
+kernels' error word is read after every kernel phase.
 Every phase prints one line with its elapsed seconds; the line before
 the last is the kernel table as JSON, the last line is
 {"ok": true, "device": {...}}.  Any failure ends
@@ -26,6 +37,7 @@ sejonggo_torch package beside it, the script exits nonzero at once.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import faulthandler
 import json
 import subprocess
@@ -34,6 +46,10 @@ import time
 
 WATCHDOG_S = 1000          # the run must end within 1200 s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+MODELS = "runs/strength_r5b/sp_models"   # model_291, 6x96, 9x9 (in git)
+XL_GAMES, GATE_GAMES = 384, 128          # strength_9x9_xl game_batch, gate
+XL_LEAVES = (XL_GAMES * 32, GATE_GAMES * 32)   # leaves per round, k = 32
+XL_BOARDS = (XL_GAMES, GATE_GAMES)
 
 T0 = time.perf_counter()
 
@@ -132,8 +148,9 @@ def positions(size, games, moves, seed, dev):
 
 def phase_gostep(seed, dev, shapes=((9, 1025, 96, 98304), (19, 32, 64, 2048))):
     """gostep kernel vs step_legal_plain on the card: bit-exact at the
-    bench's leaf batch (98,304 of 1025 games x 96 moves, 9x9), at 19x19
-    and at ragged batch sizes; device times at both sizes."""
+    bench's leaf batch (98,304 of 1025 games x 96 moves, 9x9), at the xl
+    self-play and gate leaf batches (12,288 and 4,096), at 19x19 and at
+    ragged batch sizes; device times at both sizes."""
     import torch
 
     from sejonggo_torch import ops
@@ -141,11 +158,12 @@ def phase_gostep(seed, dev, shapes=((9, 1025, 96, 98304), (19, 32, 64, 2048))):
 
     row = dict(name="gostep", route="cuda",
                source="sejonggo_torch/csrc/gostep.cu",
-               replaces="sejonggo_tpu/ops/gostep.py:171", library_ms=None,
+               replaces="sejonggo_tpu/ops/gostep.py:172", library_ms=None,
                bound_by="bytes", max_abs_err=0.0)
     for size, games, moves, b in shapes:
         stones, sides, actions = positions(size, games, moves, seed, dev)
-        for nb in (b, 1, 31, 33, 3071, b + 1):
+        xl = XL_LEAVES if size == 9 else ()
+        for nb in (b, *xl, 1, 31, 33, 3071, b + 1):
             got_s, got_i = gostep.step_legal(stones[:nb], sides[:nb],
                                              actions[:nb])
             exp_s, exp_i = gostep.step_legal_plain(stones[:nb], sides[:nb],
@@ -155,8 +173,8 @@ def phase_gostep(seed, dev, shapes=((9, 1025, 96, 98304), (19, 32, 64, 2048))):
             err = max(float((got_s.int() - exp_s.int()).abs().max()),
                       float((got_i.int() - exp_i.int()).abs().max()))
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            if nb == b:
-                log(f"gostep {size}x{size} B={b}: mismatches {bad}, "
+            if nb == b or nb in xl:
+                log(f"gostep {size}x{size} B={nb}: mismatches {bad}, "
                     f"max_abs_err {err}, launches so far "
                     f"{gostep.step_legal.launches}")
             check(bad == 0, f"gostep kernel differs from plain at "
@@ -184,6 +202,16 @@ def phase_gostep(seed, dev, shapes=((9, 1025, 96, 98304), (19, 32, 64, 2048))):
                 lambda: gostep.step_legal_plain(stones, sides, actions), 3)
             row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        loop_ms=loop_ms, floor_ms=floor_ms, batch=b)
+            # the leaf batches of the xl self-play and gate rounds
+            for nb in XL_LEAVES:
+                nms = graph_ms(lambda: gostep._launch(
+                    stones[:nb], sides[:nb], actions[:nb], out_s[:nb],
+                    out_i[:nb], flag), 50)
+                ops.check_kernel_errors(dev)
+                row[f"ms_b{nb}"] = nms
+                row[f"bound_ms_b{nb}"] = nbytes * nb / b / HBM_BYTES_PER_S * 1e3
+                log(f"gostep 9x9 B={nb}: device {nms:.5f} ms, bound "
+                    f"{row[f'bound_ms_b{nb}']:.5f} ms")
         else:
             row.update({f"ms_{size}x{size}": ms,
                         f"bound_ms_{size}x{size}": bound_ms,
@@ -193,9 +221,9 @@ def phase_gostep(seed, dev, shapes=((9, 1025, 96, 98304), (19, 32, 64, 2048))):
 
 def phase_flood(seed, dev, shapes=((9, 64, 48), (19, 16, 32))):
     """flood kernel vs flood_plain on the card: bit-exact at the move
-    step's batch (3072 = 64 games x 48 moves, 9x9), at 19x19 and at
-    ragged batch sizes up to 98,305 (random regions); device times at
-    both sizes."""
+    step's batch (3072 = 64 games x 48 moves, 9x9), at the xl self-play
+    and gate batches (384 and 128 boards), at 19x19 and at ragged batch
+    sizes up to 98,305 (random regions); device times at both sizes."""
     import torch
 
     from sejonggo_torch import ops
@@ -203,7 +231,7 @@ def phase_flood(seed, dev, shapes=((9, 64, 48), (19, 16, 32))):
 
     row = dict(name="flood", route="cuda",
                source="sejonggo_torch/csrc/flood.cu",
-               replaces="sejonggo_tpu/ops/flood.py:70", library_ms=None,
+               replaces="sejonggo_tpu/ops/flood.py:71", library_ms=None,
                bound_by="bytes", max_abs_err=0.0)
     for size, games, moves in shapes:
         stones, sides, _ = positions(size, games, moves, seed + 7, dev)
@@ -217,15 +245,16 @@ def phase_flood(seed, dev, shapes=((9, 64, 48), (19, 16, 32))):
         seed_r = allowed_r & (torch.rand(shape, generator=g, device=dev) < 0.1)
         cases = [(own & flood.dilate(empty), own), (seed_r, allowed_r)]
         b = stones.shape[0]
+        xl = XL_BOARDS if size == 9 else ()
         for s, a in cases:
-            for nb in (s.shape[0], 1, 31, 33, 3071):
+            for nb in (s.shape[0], *xl, 1, 31, 33, 3071):
                 got = flood.flood_fixpoint(s[:nb], a[:nb])
                 exp = flood.flood_plain(s[:nb], a[:nb])
                 ops.check_kernel_errors(dev)
                 bad = int((got != exp).sum())
                 row["max_abs_err"] = max(
                     row["max_abs_err"], float((got.int() - exp.int()).abs().max()))
-                if nb == s.shape[0]:
+                if nb == s.shape[0] or nb in xl:
                     log(f"flood {size}x{size} B={nb}: mismatches {bad}, "
                         f"launches so far {flood.flood_fixpoint.launches}")
                 check(bad == 0, f"flood kernel differs from plain at "
@@ -249,6 +278,15 @@ def phase_flood(seed, dev, shapes=((9, 64, 48), (19, 16, 32))):
             plain_ms = time_ms(lambda: flood.flood_plain(s, a), 5)
             row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        loop_ms=loop_ms, floor_ms=floor_ms, batch=b)
+            # the board batches of the xl self-play and gate steps
+            for nb in XL_BOARDS:
+                nms = graph_ms(lambda: flood._launch(
+                    s[:nb], a[:nb], out[:nb], flag), 200)
+                ops.check_kernel_errors(dev)
+                row[f"ms_b{nb}"] = nms
+                row[f"bound_ms_b{nb}"] = 3 * s[:nb].numel() / HBM_BYTES_PER_S * 1e3
+                log(f"flood 9x9 B={nb}: device {nms:.5f} ms, bound "
+                    f"{row[f'bound_ms_b{nb}']:.6f} ms")
         else:
             row.update({f"ms_{size}x{size}": ms,
                         f"bound_ms_{size}x{size}": bound_ms,
@@ -302,14 +340,17 @@ def phase_bench(seed, dev, b=3072):
 
     search = SearchConfig(simulations=64, batch_size=32, use_symmetry=True,
                           max_nodes=82)
-    net_cfg = NetConfig(blocks=4, filters=64, value_hidden=64)
+    # bf16 compute with float32 parameters, as bench.py's net on the chip
+    net_cfg = NetConfig(blocks=4, filters=64, value_hidden=64,
+                        compute_dtype="bfloat16")
     variables = seeded_flax_variables(9, net_cfg, seed)
-    net_parity(net_cfg, variables, dev)
+    net_parity(dataclasses.replace(net_cfg, compute_dtype="float32"),
+               variables, dev)
 
     net = AZNet.from_config(9, net_cfg)
     net.load_state_dict(from_jax_variables(variables))
-    net = net.to(dev, torch.bfloat16)     # bf16, as bench.py on the chip
-    step = make_move_step(make_predict_fn(net), search, 9, selfplay=True)
+    step = make_move_step(make_predict_fn(net.to(dev)), search, 9,
+                          selfplay=True)
     state = init_state(b, 9, search, device=dev)
     gen = torch.Generator().manual_seed(seed)
     greedy = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -375,6 +416,280 @@ def phase_kernel_vs_plain(dev, b=64):
         check(same, f"kernel and plain paths differ at move {move}")
 
 
+def xl_net(variables, dev):
+    """The strength_9x9_xl net (6x96, bf16 compute, float32 parameters)
+    on ``dev`` with ``variables`` (numpy trees at the flax shapes)."""
+    from sejonggo_torch.config import strength_9x9_xl
+    from sejonggo_torch.nets import AZNet, from_jax_variables
+
+    net = AZNet.from_config(9, strength_9x9_xl().net)
+    net.load_state_dict(from_jax_variables(variables))
+    return net.to(dev)
+
+
+def xl_calibrator(seed):
+    """The resign calibrator of strength_9x9_xl self-play (cap -0.90)."""
+    from sejonggo_torch.actor import ResignCalibrator
+    from sejonggo_torch.config import strength_9x9_xl
+
+    sp = strength_9x9_xl().selfplay
+    return ResignCalibrator(holdout_percent=sp.resignation_percent,
+                            allowed_error=sp.resignation_allowed_error,
+                            seed=seed, cap=sp.resignation_cap)
+
+
+def seeded_boards(b, seed, dev):
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x = (rng.rand(b, 9, 9, 17) < 0.2).astype(np.int8)
+    x[..., 16] = rng.choice([-1, 1], size=(b, 1, 1))
+    return torch.from_numpy(x).to(dev)
+
+
+def phase_checkpoint(dev):
+    """model_291 read with the port's own msgpack reader, the xl net in
+    bf16 on the card: finite predictions, ms per 12,288-board call."""
+    import torch
+
+    from sejonggo_torch.learn import CheckpointStore
+    from sejonggo_torch.nets import make_predict_fn
+
+    store = CheckpointStore(MODELS)
+    best = store.best_name()
+    check(best == "model_291", f"index.json names {best!r}, not model_291")
+    t = time.perf_counter()
+    variables = store.load_variables(best)
+    read_s = time.perf_counter() - t
+    predict = make_predict_fn(xl_net(variables, dev))
+    boards = seeded_boards(XL_LEAVES[0], 5, dev).float()
+    p, v = predict(boards)
+    check(bool(torch.isfinite(p).all()) and bool(torch.isfinite(v).all()),
+          "model_291 predicts non-finite values")
+    check(p.shape == (XL_LEAVES[0], 82) and v.shape == (XL_LEAVES[0], 1),
+          f"model_291 predicts shapes {tuple(p.shape)}, {tuple(v.shape)}")
+    ms = {n: time_ms(lambda: predict(boards[:n]), 10) for n in XL_LEAVES}
+    log(f"checkpoint {best}: read in {read_s:.3f} s by the port's msgpack "
+        f"reader; xl net bf16 "
+        f"{', '.join(f'{t:.3f} ms per {n}-board call' for n, t in ms.items())}; "
+        f"values in [{float(v.min()):.3f}, {float(v.max()):.3f}]")
+    return variables
+
+
+def replay(stones, actions, move_valid, komi):
+    """Replay (T, B) recorded actions through the plain engine on the CPU
+    from empty boards: every valid action legal, every recorded signed
+    grid (T, B, N, N) reproduced, masked moves leave the board as it is;
+    returns the final boards' area-score winners and black points."""
+    import torch
+
+    from sejonggo_torch.goenv import engine
+
+    stones, actions = torch.as_tensor(stones), torch.as_tensor(actions).long()
+    move_valid = torch.as_tensor(move_valid)
+    board = engine.init_board(9, batch=actions.shape[1], device="cpu")
+    for t in range(actions.shape[0]):
+        check(torch.equal(engine.signed_stones(board), stones[t]),
+              f"replayed boards differ from the record at move {t}")
+        a, mv = actions[t], move_valid[t]
+        illegal = engine.illegal_moves_mask_batch(board).gather(1, a[:, None])
+        check(not bool((illegal[:, 0] & mv).any()),
+              f"a recorded action at move {t} is illegal")
+        board = torch.where(mv[:, None, None, None],
+                            engine.step_batch(board, a), board)
+    w, bp, _ = engine.score_batch(board, komi)
+    return w.numpy(), bp.numpy()
+
+
+def phase_gate(variables, dev, seed, calib, games=GATE_GAMES):
+    """evaluate_models at the xl search: latest = model_291, best =
+    seeded random weights at the same width, all games in one batch.
+    A trained net that does not beat random weights was read wrong.  The
+    batch is replayed through the plain engine (moves, grids, winners,
+    value targets).  Its games run without resignation, as the
+    calibrator's holdout games do, so ``calib`` observes them: the
+    self-play phase then starts with live thresholds."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch import ops
+    from sejonggo_torch.config import EvalConfig, strength_9x9_xl
+    from sejonggo_torch.goenv import engine
+    from sejonggo_torch.learn import evaluate_models
+    from sejonggo_torch.nets import make_predict_fn, seeded_flax_variables
+
+    cfg = strength_9x9_xl()
+    check(cfg.eval.num_games == games, "xl EvalConfig.num_games moved")
+    latest = make_predict_fn(xl_net(variables, dev))
+    best = make_predict_fn(xl_net(seeded_flax_variables(9, cfg.net, seed), dev))
+    ops.reset_kernel_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = evaluate_models(latest, best, size=9, komi=cfg.go.komi,
+                          search=cfg.search, eval_cfg=EvalConfig(num_games=games),
+                          generator=torch.Generator().manual_seed(seed),
+                          collect_games=True, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = ops.kernel_launches()
+    (batch,) = out.pop("game_batches")
+    moves = batch.actions.shape[0]
+    rounds = cfg.search.simulations // cfg.search.batch_size
+    check(counts["gostep"] == rounds * moves, f"gate: gostep launched "
+          f"{counts['gostep']} times in {moves} moves, expected {rounds * moves}")
+    check(counts["flood"] == 4 * moves + 2, f"gate: flood launched "
+          f"{counts['flood']} times in {moves} moves, expected {4 * moves + 2}")
+    winners, black = replay(
+        engine.signed_stones(torch.from_numpy(batch.boards)), batch.actions,
+        batch.move_valid, cfg.go.komi)
+    check(np.array_equal(winners, batch.winners)
+          and np.array_equal(black, batch.black_points),
+          "gate winners differ from the replayed scores")
+    expected = np.where(winners == 0, 0, np.where(batch.players == winners,
+                                                  1, -1))
+    check(np.array_equal(batch.value_targets(), expected),
+          "gate value targets differ from the replayed winners")
+    ms_move = 1e3 * secs / moves
+    log(f"gate: model_291 vs seeded random weights, {out['games']} games in "
+        f"one batch: win rate {out['winrate']:.4f} ({out['wins']} wins, "
+        f"{out['draws']} draws), mean game {out['mean_moves']:.1f} moves, "
+        f"{moves} lockstep moves in {secs:.2f} s = {ms_move:.1f} ms per move, "
+        f"promote {out['promote']}, launches {counts}; moves, grids, "
+        f"winners and value targets replayed")
+    check(out["promote"], f"model_291 won only {out['winrate']:.3f} against "
+          "random weights: the checkpoint was read wrong")
+    calib.thresholds(games)          # cold: every game is a holdout game
+    calib.observe(batch)
+    check(calib.current is not None, "the gate's games did not calibrate "
+          "the resign threshold")
+    log(f"resign calibrator: threshold {calib.current:.4f} from "
+        f"{len(calib.min_values)} gate games won without resigning")
+    return counts, dict(moves=moves, secs=secs, ms_per_move=ms_move,
+                        winrate=out["winrate"])
+
+
+def phase_selfplay(variables, dev, seed, calib, min_games=8, max_steps=170):
+    """ContinuousSelfPlay at strength_9x9_xl (384 slots, 192 simulations in
+    rounds of 32, 256 slots a tree, bf16) from model_291 with resign
+    thresholds from ``calib`` (capped at -0.90), until min_games games
+    have finished and one of them was played out rather than resigned
+    (every game ends by the 162-move cap at the latest, so max_steps is
+    a bound, not a cut).  Each step's moves are checked
+    legal on the card; the harvested games are replayed through the plain
+    engine (grids, area winners); a resigned game's winner is the side
+    that moved last."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch import ops
+    from sejonggo_torch.actor import ContinuousSelfPlay
+    from sejonggo_torch.config import strength_9x9_xl
+    from sejonggo_torch.goenv import engine
+    from sejonggo_torch.nets import make_predict_fn
+
+    cfg = strength_9x9_xl()
+    check(cfg.selfplay.game_batch == XL_GAMES, "xl game_batch moved")
+    actor = ContinuousSelfPlay(
+        make_predict_fn(xl_net(variables, dev)), size=9, komi=cfg.go.komi,
+        search=cfg.search, game_batch=XL_GAMES,
+        stop_exploration=cfg.selfplay.stop_exploration,
+        generator=torch.Generator().manual_seed(seed),
+        threshold_fn=calib.threshold_for_new_game, device=dev)
+    live = int((~np.isnan(actor._thresholds)).sum())
+    step = actor._step
+    step_s = []
+
+    def checked_step(state, thr, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new_state, rec = step(state, thr, **kw)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        legal_check(state.boards, rec["actions"], rec["move_valid"])
+        return new_state, rec
+
+    actor._step = checked_step
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    games = actor.run(min_games, on_game=calib.observe_game,
+                      max_steps=max_steps)
+    # resigned games end first: play on until a game is played out too
+    while all(g["resigned"] for g in games) and actor.steps < max_steps:
+        games += actor.run(1, on_game=calib.observe_game,
+                           max_steps=max_steps - actor.steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = ops.kernel_launches()
+    steps = actor.steps
+    resigned = sum(g["resigned"] for g in games)
+    check(len(games) >= min_games, f"{len(games)} games finished in "
+          f"{steps} steps, expected {min_games}")
+    check(0 < resigned < len(games), f"{resigned} of {len(games)} games "
+          "resigned: expected resigned and played-out games")
+    rounds = cfg.search.simulations // cfg.search.batch_size
+    check(counts["gostep"] == rounds * steps, f"gostep launched "
+          f"{counts['gostep']} times in {steps} steps, expected {rounds * steps}")
+    check(counts["flood"] == 6 * steps, f"flood launched {counts['flood']} "
+          f"times in {steps} steps, expected {6 * steps} (4 in the env step, "
+          "2 in the score)")
+    for g in games:
+        n = len(g["actions"])
+        winner, black = replay(
+            engine.signed_stones(torch.from_numpy(g["boards"]))[:, None],
+            g["actions"][:, None], np.ones((n, 1), bool), cfg.go.komi)
+        check(winner[0] == g["winner"] and black[0] == g["black_points"],
+              f"game winner {g['winner']} differs from the replayed score "
+              f"{winner[0]}")
+        check(g["resign_winner"] == (g["players"][-1] if g["resigned"]
+                                     else g["winner"]),
+              f"resign winner {g['resign_winner']} of a game "
+              f"{'resigned' if g['resigned'] else 'played out'}")
+        check(bool(np.isfinite(g["values"]).all()), "non-finite game values")
+    lengths = [len(g["actions"]) for g in games]
+    played = [n for n, g in zip(lengths, games) if not g["resigned"]]
+    ms_step = 1e3 * float(np.mean(step_s))
+    log(f"self-play: {len(games)} games finished in {steps} steps "
+        f"({secs:.2f} s), {ms_step:.1f} ms per step at B={XL_GAMES} "
+        f"(median {1e3 * float(np.median(step_s)):.1f}), "
+        f"{actor.moves_recorded / secs:.1f} moves/s, game lengths "
+        f"{min(lengths)}-{max(lengths)} (median {np.median(lengths):.1f}), "
+        f"black won {sum(g['winner'] == 1 for g in games)}, resigned "
+        f"{resigned}, played out {len(played)} of lengths {played} "
+        f"(resignation live in {live} of the first {XL_GAMES} games, "
+        f"{actor.empty_games} empty games dropped), tree_fresh_rate "
+        f"{actor.tree_fresh_rate:.3f}, launches {counts}")
+    return actor, counts, dict(steps=steps, games=len(games), secs=secs,
+                               ms_per_step=ms_step, resigned=resigned,
+                               moves_per_s=actor.moves_recorded / secs)
+
+
+def phase_determinism(actor, seed):
+    """One xl self-play step twice from the same state with the same draws,
+    through the kernels: trees and moves bit-equal (the backup's sums
+    have a fixed order)."""
+    import torch
+
+    from sejonggo_torch.config import strength_9x9_xl
+    from sejonggo_torch.search import sample_dirichlet
+
+    search = strength_9x9_xl().search
+    g = torch.Generator().manual_seed(seed)
+    b = actor.b
+    u = torch.rand((b, 82), generator=g).clamp(1e-20, 1 - 1e-7)
+    draws = dict(noise=sample_dirichlet(search.dirichlet_alpha, b, 82, g),
+                 syms=torch.randint(0, 7, (search.rounds,), generator=g).tolist(),
+                 gumbel=-torch.log(-torch.log(u)))
+    thr = torch.full((b,), float("nan"), device=actor.state.boards.device)
+    runs = [actor._step(actor.state, thr, **draws) for _ in range(2)]
+    (s1, r1), (s2, r2) = runs
+    same = {name: torch.equal(getattr(s1.trees, name), getattr(s2.trees, name))
+            for name in ("child_W", "child_N", "root_W", "root_N")}
+    same["actions"] = torch.equal(r1["actions"], r2["actions"])
+    log(f"determinism: one xl step twice, bit-equal {same}")
+    check(all(same.values()), f"one xl step repeated differs: {same}")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -425,9 +740,34 @@ def main() -> int:
     phase_kernel_vs_plain(dev)
     ops.check_kernel_errors(dev)
     log(f"phase 5 kernel vs plain path: ok in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    variables = phase_checkpoint(dev)
+    log(f"phase 6 checkpoint: ok in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    calib = xl_calibrator(args.seed)
+    gate_counts, gate = phase_gate(variables, dev, args.seed, calib)
+    ops.check_kernel_errors(dev)
+    log(f"phase 7 gate: ok in {time.perf_counter() - t:.2f} s; win rate "
+        f"{gate['winrate']:.4f}, {gate['ms_per_move']:.1f} ms per move at "
+        f"B={GATE_GAMES} on {card}")
+    t = time.perf_counter()
+    actor, sp_counts, sp = phase_selfplay(variables, dev, args.seed, calib)
+    ops.check_kernel_errors(dev)
+    log(f"phase 8 self-play: ok in {time.perf_counter() - t:.2f} s; "
+        f"{sp['ms_per_step']:.1f} ms per step, {sp['moves_per_s']:.1f} "
+        f"moves/s at B={XL_GAMES}, xl, model_291 on {card}")
+    t = time.perf_counter()
+    phase_determinism(actor, args.seed)
+    ops.check_kernel_errors(dev)
+    log(f"phase 9 determinism: ok in {time.perf_counter() - t:.2f} s")
+    del actor
 
-    gostep_row["launches"] = counts["gostep"]
-    flood_row["launches"] = counts["flood"]
+    for row in (gostep_row, flood_row):
+        name = row["name"]
+        row.update(launches=counts[name],
+                   launches_selfplay=sp_counts[name],
+                   selfplay_steps=sp["steps"],
+                   launches_gate=gate_counts[name], gate_moves=gate["moves"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

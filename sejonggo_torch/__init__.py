@@ -12,7 +12,10 @@ names mirror the JAX package so each module's counterpart is easy to find:
 - ``nets``   — the AlphaZero residual net as an ``nn.Module`` and the
                converter from flax variable trees;
 - ``search`` — the array-backed batched MCTS;
-- ``actor``  — the self-play move step.
+- ``actor``  — the move step, whole self-play and evaluation games,
+               continuous self-play and the resign calibrator;
+- ``learn``  — the gate and the read side of the checkpoint store, with
+               its own msgpack decoder.
 
 Entry points default to ``device="cuda"`` and raise if CUDA is absent;
 the CPU is used only when the caller passes it explicitly.

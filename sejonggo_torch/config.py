@@ -1,11 +1,13 @@
 """Typed configuration (a copy of the parts of sejonggo_tpu/config.py the
-port uses: GoConfig, NetConfig, SearchConfig, Config and the presets).
+port uses: GoConfig, NetConfig, SearchConfig, SelfPlayConfig, EvalConfig,
+Config and the 9x9 presets).
 
 Kept as its own copy so the port never imports the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,12 +68,44 @@ class SearchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SelfPlayConfig:
+    """Self-play parameters (reference conf.py:27-40)."""
+
+    num_games: int = 5000          # N_GAMES
+    stop_exploration: int = 30     # STOP_EXPLORATION (temperature -> 0)
+    resignation_percent: float = 0.10
+    resignation_allowed_error: float = 0.05
+    # Upper bound on the calibrated resign threshold (None = pure
+    # reference calibration); guards the cold-start collapse where a weak
+    # value head resigns whole batches at move 0 (actor/resign.py).
+    resignation_cap: Optional[float] = None
+    # Number of games stepped in lockstep on the device.
+    game_batch: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Evaluator gating (reference conf.py:52-53, evaluator.py:23-47)."""
+
+    num_games: int = 100           # EVALUATE_N_GAMES
+    margin: float = 0.55           # EVALUATE_MARGIN
+    # Optional move cap for evaluation games; None = 2*N*N.  Games cut at
+    # the cap are decided by area score, as every game is.
+    max_moves: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     """The slices of the JAX package's Config that the port runs."""
 
     go: GoConfig = dataclasses.field(default_factory=GoConfig)
     net: NetConfig = dataclasses.field(default_factory=NetConfig)
     search: SearchConfig = dataclasses.field(default_factory=SearchConfig)
+    selfplay: SelfPlayConfig = dataclasses.field(default_factory=SelfPlayConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
 
 
 def small_9x9(**overrides) -> Config:
@@ -81,6 +115,9 @@ def small_9x9(**overrides) -> Config:
         net=NetConfig(blocks=4, filters=64, value_hidden=64,
                       compute_dtype="float32"),
         search=SearchConfig(simulations=64, batch_size=8),
+        selfplay=SelfPlayConfig(num_games=16, stop_exploration=8,
+                                game_batch=8),
+        eval=EvalConfig(num_games=8),
     )
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
@@ -94,5 +131,26 @@ def strength_9x9(**overrides) -> Config:
         search=SearchConfig(simulations=96, batch_size=16,
                             dirichlet_alpha=0.15, negamax=True,
                             policy_target="visits", max_nodes=128),
+        # resignation off (holdout 100%): a cold value head death-spirals
+        # even under a capped threshold
+        selfplay=SelfPlayConfig(num_games=512, stop_exploration=12,
+                                game_batch=512, resignation_percent=1.0),
+        eval=EvalConfig(num_games=128),
+    )
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def strength_9x9_xl(**overrides) -> Config:
+    """Scaled 9x9 strength point (sejonggo_tpu.config.strength_9x9_xl):
+    the strength_9x9 net (6x96, bf16), 192 simulations in rounds of 32
+    leaves, 256 tree slots, calibrated resignation live under a -0.90
+    cap, 384 games in lockstep."""
+    base = strength_9x9()
+    cfg = base.replace(
+        search=dataclasses.replace(base.search, simulations=192,
+                                   batch_size=32, max_nodes=256),
+        selfplay=dataclasses.replace(
+            base.selfplay, resignation_percent=0.10,
+            resignation_cap=-0.90, game_batch=384),
     )
     return dataclasses.replace(cfg, **overrides) if overrides else cfg

@@ -11,8 +11,9 @@ illegal iff it has no adjacent empty point and captures nothing, which
 also forbids filling a fully surrounded point next to a live friendly
 group.
 
-Dispatch is by device, not by a global switch: ``step_batch`` floods
-through ``ops.flood.flood_fixpoint`` and ``step_and_illegal_stones_batch``
+Dispatch is by device, not by a global switch: ``step_batch`` and
+``score_batch`` flood through ``ops.flood.flood_fixpoint`` and
+``step_and_illegal_stones_batch``
 goes through ``ops.gostep.step_legal``; both launch the CUDA kernels for
 CUDA tensors and run their plain versions for CPU tensors.
 """
@@ -207,11 +208,13 @@ def step_and_illegal_stones_batch(stones: torch.Tensor, sides: torch.Tensor,
 
 def score_batch(boards: torch.Tensor, komi: float):
     """Area score (reference get_winner play.py:274-292): returns
-    (winner (B,) int32 in {+1, 0, -1}, black_points, white_points)."""
+    (winner (B,) int32 in {+1, 0, -1}, black_points, white_points).  Its
+    two floods run through ``flood_fixpoint`` (the CUDA kernel on the
+    card): the continuous self-play step scores every slot every step."""
     real = signed_stones(boards)
     black, white, empty = real == 1, real == -1, real == 0
-    reach_b = _flood(empty & _dilate(black), empty)
-    reach_w = _flood(empty & _dilate(white), empty)
+    reach_b = flood_fixpoint(empty & _dilate(black), empty)
+    reach_w = flood_fixpoint(empty & _dilate(white), empty)
     black_pts = (black.sum((-2, -1)) + (reach_b & ~reach_w).sum((-2, -1))
                  ).to(torch.float32)
     white_pts = (white.sum((-2, -1)) + (reach_w & ~reach_b).sum((-2, -1))

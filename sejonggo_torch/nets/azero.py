@@ -10,6 +10,14 @@ ReLU -> Linear(1) tanh).  BatchNorm keeps the Keras/flax settings
 The module computes in NCHW; its public input is NHWC (B, N, N, 17) like
 the JAX package.  The heads permute back to NHWC before flattening,
 because the flax Dense layers were trained on an NHWC flatten.
+
+``compute_dtype`` follows flax's ``dtype=compute, param_dtype=float32``:
+the parameters and BatchNorm statistics stay float32; convolutions, dense
+layers and activations run in the compute dtype, and BatchNorm takes the
+compute-dtype activations with its float32 statistics, normalises in
+float32 and rounds its output once to the compute dtype, as flax's
+``_normalize`` does (one pass over the activations).  The weights are cast
+to the compute dtype once and the copy is kept until a weight changes.
 """
 from __future__ import annotations
 
@@ -27,6 +35,33 @@ def _bn(channels: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
+def _weights(layer: nn.Module, dtype: torch.dtype):
+    """(weight, bias) of ``layer`` in ``dtype``.  Under autograd the cast
+    is part of the graph.  Otherwise the cast copy is kept on the layer
+    and made anew when a parameter has been written since (its
+    ``_version`` moved: an optimiser step, ``load_state_dict``), has moved
+    (its storage changed) or the dtype differs."""
+    w, b = layer.weight, layer.bias
+    if torch.is_grad_enabled() and w.requires_grad:
+        return w.to(dtype), b.to(dtype)
+    key = (dtype, w.data_ptr(), w._version, b.data_ptr(), b._version)
+    cached = layer.__dict__.get("_cast_copy")
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = (key, w.to(dtype), b.to(dtype))
+        layer.__dict__["_cast_copy"] = cached
+    return cached[1], cached[2]
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` in the dtype of ``x`` (float32 parameters)."""
+    return F.conv2d(x, *_weights(conv, x.dtype), padding=conv.padding)
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, *_weights(lin, x.dtype))
+
+
 class ResBlock(nn.Module):
     def __init__(self, filters: int):
         super().__init__()
@@ -36,8 +71,8 @@ class ResBlock(nn.Module):
         self.bn2 = _bn(filters)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+        y = F.relu(self.bn1(_conv(self.conv1, x)))
+        y = self.bn2(_conv(self.conv2, y))
         return F.relu(y + x)
 
 
@@ -46,9 +81,10 @@ class AZNet(nn.Module):
 
     def __init__(self, size: int, blocks: int = 20, filters: int = 256,
                  value_hidden: int = 256, policy_filters: int = 2,
-                 value_filters: int = 2):
+                 value_filters: int = 2, compute_dtype: str = "bfloat16"):
         super().__init__()
         self.size = size
+        self.compute_dtype = getattr(torch, compute_dtype)
         a = size * size + 1
         self.stem_conv = nn.Conv2d(17, filters, 3, padding=1)
         self.stem_bn = _bn(filters)
@@ -66,7 +102,8 @@ class AZNet(nn.Module):
         return cls(size, blocks=cfg.blocks, filters=cfg.filters,
                    value_hidden=cfg.value_hidden,
                    policy_filters=cfg.policy_filters,
-                   value_filters=cfg.value_filters)
+                   value_filters=cfg.value_filters,
+                   compute_dtype=cfg.compute_dtype)
 
     @staticmethod
     def _flatten_nhwc(x):
@@ -74,25 +111,23 @@ class AZNet(nn.Module):
 
     def forward(self, boards: torch.Tensor):
         """(B, N, N, 17) -> (policy logits (B, N*N+1), values (B, 1)),
-        both float32."""
-        dtype = self.stem_conv.weight.dtype
-        x = boards.to(dtype).permute(0, 3, 1, 2)
-        h = F.relu(self.stem_bn(self.stem_conv(x)))
+        both float32, computed in ``compute_dtype``."""
+        x = boards.to(self.compute_dtype).permute(0, 3, 1, 2)
+        h = F.relu(self.stem_bn(_conv(self.stem_conv, x)))
         for block in self.blocks:
             h = block(h)
-        p = F.relu(self.policy_bn(self.policy_conv(h)))
-        logits = self.policy_out(self._flatten_nhwc(p))
-        v = F.relu(self.value_bn(self.value_conv(h)))
-        v = F.relu(self.value_hidden(self._flatten_nhwc(v)))
-        value = torch.tanh(self.value_out(v))
+        p = F.relu(self.policy_bn(_conv(self.policy_conv, h)))
+        logits = _dense(self.policy_out, self._flatten_nhwc(p))
+        v = F.relu(self.value_bn(_conv(self.value_conv, h)))
+        v = F.relu(_dense(self.value_hidden, self._flatten_nhwc(v)))
+        value = torch.tanh(_dense(self.value_out, v))
         return logits.float(), value.float()
 
 
 def make_predict_fn(model: AZNet):
     """predict(boards (B, N, N, 17)) -> (softmax policy (B, N*N+1),
-    values (B, 1)), in eval mode and without autograd.  The model's
-    parameter dtype is the compute dtype (``model.to(torch.bfloat16)``
-    for bf16)."""
+    values (B, 1)) in float32, in eval mode and without autograd.  The
+    model computes in its ``compute_dtype``; its parameters stay float32."""
     model.eval()
 
     def predict(boards):

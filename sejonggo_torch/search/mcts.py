@@ -19,8 +19,11 @@ This ports what the JAX package's TPU workarounds compute, not how: its
 one-hot matmul gathers and compactions become index gathers, its
 permutation-squaring descent becomes pointer doubling (capped at
 ceil(log2 C) steps, which covers any chain of C nodes), and its closure
-backup becomes a level-by-level climb capped at C levels.  Every function
-returns new tensors and leaves its input Tree untouched.
+backup keeps its node-centric sums but builds each new leaf's ancestor
+path by pointer doubling instead of squaring a (C, C) matrix.  No step
+has a trip count that depends on the data, and no float sum depends on
+the order of atomics.  Every function returns new tensors and leaves its
+input Tree untouched.
 """
 from __future__ import annotations
 
@@ -83,6 +86,36 @@ def collect_leaves(tree: Tree, k: int, c_puct: float):
     return leaf_p, leaf_a, active
 
 
+def _ancestor_signs(parent: torch.Tensor, slots: torch.Tensor,
+                    negamax: bool) -> torch.Tensor:
+    """(B, k, C) float32: M[b, l, x] = s^t where node x is the t-th
+    ancestor of slot ``slots[b, l]`` (t = 0 for the slot itself, up to
+    the root), s = -1 in negamax and 1 otherwise; 0 for other nodes.
+
+    The ancestor paths are built by pointer doubling: the path's first m
+    entries, then the same entries moved up by parent^m, for m = 1, 2, 4,
+    ... until m covers C (parents sit at lower slots, so a path has at
+    most C entries).  Past the root the path stays at slot 0; those
+    entries go to a dump column."""
+    b, c = parent.shape
+    k = slots.shape[1]
+    up = parent.long()
+    path = slots.long()[..., None]                            # (B, k, 1)
+    while path.shape[-1] < c:
+        moved = torch.gather(up, 1, path.reshape(b, -1)).view_as(path)
+        path = torch.cat([path, moved], dim=-1)
+        up = torch.gather(up, 1, up)
+    path = path[..., :c]
+    t = torch.arange(c, device=parent.device)
+    past_root = torch.zeros_like(path, dtype=torch.bool)
+    past_root[..., 1:] = path[..., :-1] == 0
+    sign = (1 - 2 * (t % 2)) if negamax else torch.ones_like(t)
+    sign = sign.to(torch.float32).expand(b, k, c)
+    m = torch.zeros((b, k, c + 1), dtype=torch.float32, device=parent.device)
+    m.scatter_(2, torch.where(past_root, c, path), sign)
+    return m[..., :c]
+
+
 def expand_backup(tree: Tree, leaf_p, leaf_a, leaf_stones, leaf_side,
                   active, policies, values, legal, negamax: bool,
                   slot_base: int | None = None) -> Tree:
@@ -126,34 +159,31 @@ def expand_backup(tree: Tree, leaf_p, leaf_a, leaf_stones, leaf_side,
     else:
         val = torch.where(leaf_side == tree.node_side[:, :1], v, -v)
 
-    # all leaves climb to the root in lockstep, one tree level per step
-    c, a_dim = tree.child_N.shape[1], tree.child_N.shape[2]
-    cn = tree.child_N.clone().view(-1)
-    cw = tree.child_W.clone().view(-1)
-    rn, rw = tree.root_N, tree.root_W
-    alive, p, a = active, leaf_p.long(), leaf_a.long()
-    for _ in range(c + 1):
-        if not bool(alive.any()):
-            break
-        flat = ((bidx * c + p) * a_dim + a.clamp(min=0)).reshape(-1)
-        cn.index_add_(0, flat, alive.to(torch.int32).reshape(-1))
-        cw.index_add_(0, flat, torch.where(alive, val, 0.0).reshape(-1))
-        at_root = alive & (p == 0)
-        rn = rn + at_root.sum(1, dtype=torch.int32)
-        rw = rw + torch.where(at_root, val, 0.0).sum(1)
-        if negamax:
-            val = -val
-        alive = alive & ~at_root
-        p, a = parent[bidx, p].long(), parent_action[bidx, p].long()
-    else:
-        raise RuntimeError("backup climbed more than C levels: the tree "
-                           "has a cycle")
+    # the closure backup of the JAX package: every new leaf adds (1, its
+    # value, sign-flipped per level in negamax) to the edge into each of
+    # its ancestors, so node x's edge gains d_N[x] = sum_l |M[l, x]| and
+    # d_V[x] = sum_l val_l M[l, x], with M[l, x] = (+-1)^t where x is the
+    # leaf's t-th ancestor (0 elsewhere).  The sums over the leaf axis are
+    # plain reductions, whose order is fixed for a shape on a device, and
+    # each edge then takes one addend: no atomics, and no trip count that
+    # depends on the depth of the tree.
+    m = _ancestor_signs(parent, slots, negamax)               # (B, k, C)
+    d_n = (active[..., None] & (m != 0)).sum(1, dtype=torch.int32)
+    d_v = (torch.where(active, val, 0.0)[..., None] * m).sum(1)  # (B, C)
+    has = child_idx >= 0
+    ci = child_idx.clamp(min=0).long().view(b, -1)
+    child_N = tree.child_N + torch.where(
+        has, torch.gather(d_n, 1, ci).view_as(has), 0)
+    child_W = tree.child_W + torch.where(
+        has, torch.gather(d_v, 1, ci).view_as(has), 0.0)
+    root_N = tree.root_N + active.sum(1, dtype=torch.int32)
+    # the root's deposit is its depth-1 ancestor's: -d_V[0] in negamax
+    root_W = tree.root_W + (-d_v[:, 0] if negamax else d_v[:, 0])
     return tree.replace(
         node_stones=node_stones, node_side=node_side, node_P=node_P,
-        node_legal=node_legal, child_N=cn.view_as(tree.child_N),
-        child_W=cw.view_as(tree.child_W), child_idx=child_idx,
-        parent=parent, parent_action=parent_action, n_nodes=n_nodes,
-        root_N=rn, root_W=rw)
+        node_legal=node_legal, child_N=child_N, child_W=child_W,
+        child_idx=child_idx, parent=parent, parent_action=parent_action,
+        n_nodes=n_nodes, root_N=root_N, root_W=root_W)
 
 
 def leaf_features(trees: Tree, leaf_p, leaf_stones, leaf_side, sym=None):
@@ -285,18 +315,23 @@ def run_search(trees: Tree, predict_fn: Callable, *, simulations: int,
 
 
 def decide_batch(trees: Tree, greedy: torch.Tensor,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+                 generator: torch.Generator | None = None, *,
+                 gumbel: torch.Tensor | None = None) -> torch.Tensor:
     """(B,) root moves.  Greedy rows: the lexicographic max of (count,
     mean value, action) over legal actions (reference self_play.py:151).
-    Other rows sample proportionally to visit counts (Gumbel-max with
-    draws from ``generator``, made on the CPU)."""
+    Other rows sample proportionally to visit counts: the Gumbel-max
+    argmax(log N + g) that ``jax.random.categorical`` computes, with the
+    (B, A) float32 draws ``gumbel`` or, without them, draws made on the
+    CPU from ``generator``.  Rows without visits take the greedy move."""
     counts = trees.child_N[:, 0]
     b, a = counts.shape
     dev = counts.device
     cf = counts.to(torch.float32)
     logits = torch.where(counts > 0, torch.log(cf), float("-inf"))
-    u = torch.rand((b, a), generator=generator).to(dev)
-    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20, max=1 - 1e-7)))
+    if gumbel is None:
+        u = torch.rand((b, a), generator=generator)
+        gumbel = -torch.log(-torch.log(u.clamp(min=1e-20, max=1 - 1e-7)))
+    gumbel = gumbel.to(dev, torch.float32)
     sampled = (logits + gumbel).argmax(-1).to(torch.int32)
 
     c = torch.where(trees.node_legal[:, 0], counts, -1)

@@ -161,7 +161,7 @@ def new_tree_batch(policies: torch.Tensor, boards: torch.Tensor,
     legal = ~engine.illegal_moves_mask_batch(boards)
     p = policies.to(torch.float32)
     if noise is not None:
-        p = mix_noise(p, noise.to(torch.float32), epsilon)
+        p = mix_noise(p, noise.to(p.device, torch.float32), epsilon)
     tree.root_board = boards.to(torch.int8).clone()
     tree.node_stones[:, 0] = engine.signed_stones(boards)
     tree.node_side[:, 0] = boards[:, 0, 0, 16].to(torch.int8)

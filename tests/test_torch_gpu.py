@@ -7,15 +7,23 @@ package, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
 from sejonggo_torch import ops
-from sejonggo_torch.actor import init_state, make_move_step
-from sejonggo_torch.config import SearchConfig
+from sejonggo_torch.actor import init_state, make_move_step, play_games
+from sejonggo_torch.config import NetConfig, SearchConfig, strength_9x9_xl
 from sejonggo_torch.goenv.positions import random_positions
-from sejonggo_torch.nets import dummy_predict_fn
+from sejonggo_torch.learn import CheckpointStore
+from sejonggo_torch.nets import (AZNet, dummy_predict_fn, from_jax_variables,
+                                 make_predict_fn, seeded_flax_variables)
+
+MODELS = pathlib.Path(__file__).resolve().parents[1] / \
+    "runs/strength_r5b/sp_models"
 
 
 @pytest.fixture
@@ -197,3 +205,78 @@ def test_move_step_kernel_path_matches_plain_path(cuda):
     # every move read the error word; a normal game leaves it 0
     from sejonggo_torch.ops import errors
     assert int(errors.error_word(cuda).item()) == 0
+
+
+@pytest.mark.gpu
+def test_play_games_kernel_path_matches_plain_path(cuda):
+    """Whole self-play games with root noise, symmetries and sampled
+    opening moves, all drawn on the CPU from one seed: the card (both
+    kernels) and the CPU (plain versions) give the same GameBatch."""
+    search = SearchConfig(simulations=16, batch_size=8, use_symmetry=True,
+                          dirichlet_alpha=0.3, max_nodes=40)
+    games = {}
+    for d in (cuda, "cpu"):
+        ops.reset_kernel_launches()
+        games[d] = play_games(
+            dummy_predict_fn, size=5, komi=5.5, search=search, game_batch=8,
+            generator=torch.Generator().manual_seed(3), stop_exploration=3,
+            max_moves=30, device=d,
+            resign_thresholds=[np.nan] * 7 + [2.0])
+        if d is cuda:
+            launches = ops.kernel_launches()
+    t = games[cuda].actions.shape[0]
+    assert launches == {"gostep": 2 * t, "flood": 4 * t + 2}
+    for f in dataclasses.fields(games[cuda]):
+        assert np.array_equal(getattr(games[cuda], f.name),
+                              getattr(games["cpu"], f.name)), f.name
+
+
+@pytest.mark.gpu
+def test_model_291_bf16_predict(cuda):
+    """The xl net from the committed checkpoint, bf16 on the card, against
+    the same net in float32 on the CPU: within 0.1, four times the gap
+    between bf16 and float32 that the CPU shows on such boards (0.025)."""
+    cfg = strength_9x9_xl().net
+    state = from_jax_variables(
+        CheckpointStore(str(MODELS)).load_variables("model_291"))
+    preds = {}
+    for d, dtype in ((cuda, "bfloat16"), ("cpu", "float32")):
+        net = AZNet.from_config(9, dataclasses.replace(cfg, compute_dtype=dtype))
+        net.load_state_dict(state)
+        preds[d] = make_predict_fn(net.to(d))
+    rng = np.random.RandomState(0)
+    x = (rng.rand(512, 9, 9, 17) < 0.2).astype(np.int8)
+    x[..., 16] = rng.choice([-1, 1], size=(512, 1, 1))
+    p16, v16 = preds[cuda](torch.from_numpy(x).to(cuda))
+    p32, v32 = preds["cpu"](torch.from_numpy(x))
+    assert p16.dtype == torch.float32 and bool(torch.isfinite(v16).all())
+    assert float((v16.cpu() - v32).abs().max()) <= 0.1
+    assert float((p16.cpu() - p32).abs().max()) <= 0.1
+
+
+@pytest.mark.gpu
+def test_backup_repeats_bit_equal(cuda):
+    """One move's search with a real (seeded) net, twice from the same
+    state and draws: the value sums and counts repeat bit for bit."""
+    search = SearchConfig(simulations=64, batch_size=32, use_symmetry=True,
+                          negamax=True, max_nodes=96)
+    cfg = NetConfig(blocks=2, filters=32, value_hidden=32)
+    net = AZNet.from_config(9, cfg)
+    net.load_state_dict(from_jax_variables(seeded_flax_variables(9, cfg, 0)))
+    step = make_move_step(make_predict_fn(net.to(cuda)), search, 9)
+    b = 256
+    state = init_state(b, 9, search, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    greedy = torch.zeros(b, dtype=torch.bool, device=cuda)
+    thr = torch.full((b,), float("nan"), device=cuda)
+    for _ in range(3):
+        state, _, _ = step(state, greedy, thr, generator=gen)
+    draws = dict(noise=torch.full((b, 82), 1 / 82), syms=[1, 2],
+                 gumbel=torch.zeros(b, 82))
+    runs = [step(state, greedy, thr, **draws) for _ in range(2)]
+    (s1, r1, _), (s2, r2, _) = runs
+    assert torch.equal(r1["actions"], r2["actions"])
+    for name in ("child_W", "child_N", "root_W", "root_N"):
+        a, c = getattr(s1.trees, name), getattr(s2.trees, name)
+        assert torch.equal(a, c), name
+    assert float(s1.trees.child_W.abs().sum()) > 0

@@ -72,7 +72,8 @@ def test_seeded_variables_have_flax_shapes():
     # the flax net runs on them and agrees with the port
     boards = _boards(size, 3, 9)
     jl, jv = jnet.apply(got, jnp.asarray(boards, jnp.float32))
-    net = AZNet.from_config(size, NetConfig(blocks=2, filters=16, value_hidden=8))
+    net = AZNet.from_config(size, NetConfig(blocks=2, filters=16, value_hidden=8,
+                                            compute_dtype="float32"))
     net.load_state_dict(from_jax_variables(got))
     net.eval()
     with torch.no_grad():
