@@ -4,9 +4,9 @@
 Drives the port's 9x9 self-play move step (the path bench.py measures for
 the JAX package: B=3072 games, 64 simulations in rounds of 32 leaves, 82
 tree slots, a 4-block x 64-filter bf16 net with random weights made from
---seed), then the serving half of a generation at the strength_9x9_xl
-point from the committed model_291 checkpoint (6x96, bf16): continuous
-self-play and the gate.  Holds each hand-written CUDA kernel against its
+--seed), then the strength_9x9_xl point from the committed model_291
+checkpoint (6x96, bf16): continuous self-play, the gate, and one whole
+generation of the closed loop (self-play, train, checkpoint, gate).  Holds each hand-written CUDA kernel against its
 plain PyTorch version on the card.
 
     python3 chip_smoke.py [--seed 0]
@@ -25,8 +25,13 @@ replayed through the plain engine: moves, winners, value targets), whose
 games warm the resign calibrator, 8 continuous self-play at xl (384
 slots, 192 simulations, live resign thresholds) until 8 games finish,
 one of them played out (legal moves, games replayed through the plain engine, winners, resign
-winners, launch counts), 9 one xl step twice (bit-equal trees).  The
-kernels' error word is read after every kernel phase.
+winners, launch counts), 9 one xl step twice (bit-equal trees), 10 one
+whole generation of ``sejonggo_torch.pipeline.Pipeline`` at xl from
+model_291 with nothing cut (512 self-play games at 384 slots, 256 train
+steps at batch 256, the 128-game gate of model_292 against model_291):
+model_292 read back bit-equal to the trained state, the replay's moves,
+each phase's launch counts, and one bf16 train step on the card held to
+the CPU's.  The kernels' error word is read after every kernel phase.
 Every phase prints one line with its elapsed seconds; the line before
 the last is the kernel table as JSON, the last line is
 {"ok": true, "device": {...}}.  Any failure ends
@@ -48,6 +53,9 @@ WATCHDOG_S = 1000          # the run must end within 1200 s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 MODELS = "runs/strength_r5b/sp_models"   # model_291, 6x96, 9x9 (in git)
 XL_GAMES, GATE_GAMES = 384, 128          # strength_9x9_xl game_batch, gate
+# a strength_9x9_xl generation: self-play games, train steps and batch
+GEN_GAMES, GEN_STEPS, GEN_BATCH = 512, 256, 256
+MODEL_291_STEP = 74240
 XL_LEAVES = (XL_GAMES * 32, GATE_GAMES * 32)   # leaves per round, k = 32
 XL_BOARDS = (XL_GAMES, GATE_GAMES)
 
@@ -690,6 +698,232 @@ def phase_determinism(actor, seed):
     check(all(same.values()), f"one xl step repeated differs: {same}")
 
 
+def forward_flops(net_cfg, size=9):
+    """FLOPs (2 per multiply-add) of one forward of the net on one board,
+    counted from its shapes: the convolutions at every point, the dense
+    layers."""
+    n, f = size * size, net_cfg.filters
+    conv = (9 * 17 * f + 2 * net_cfg.blocks * 9 * f * f
+            + f * (net_cfg.policy_filters + net_cfg.value_filters)) * n
+    dense = (net_cfg.policy_filters * n * (n + 1)
+             + net_cfg.value_filters * n * net_cfg.value_hidden
+             + net_cfg.value_hidden)
+    return 2 * (conv + dense)
+
+
+def same_tree(a, b) -> bool:
+    """Two checkpoint trees equal key for key, in order, arrays bit for
+    bit with their dtypes and shapes."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(same_tree(a[k], b[k]) for k in a))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def train_parity(replay, dev, seed):
+    """One xl train step from model_291 on one fixed batch of 256 rows of
+    the generation's replay: bf16 on the card against bf16 on the CPU,
+    held to twice the CPU's own bf16-vs-float32 gap (loss and grad norm,
+    the gap floored at one bf16 step, 2^-8 of the value; the updated
+    parameters in L2)."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch.config import strength_9x9_xl
+    from sejonggo_torch.learn import (CheckpointStore, make_optimizer,
+                                      make_train_step)
+    from sejonggo_torch.nets import AZNet
+
+    cfg = strength_9x9_xl()
+    idx = np.random.RandomState(seed).randint(0, len(replay),
+                                              cfg.train.batch_size)
+    batch = (replay.boards[idx].astype(np.float32), replay.policies[idx],
+             replay.values[idx])
+    out = {}
+    for name, d, dtype in (("card", dev, "bfloat16"), ("cpu", "cpu", "bfloat16"),
+                           ("cpu32", "cpu", "float32")):
+        net = AZNet.from_config(9, dataclasses.replace(
+            cfg.net, compute_dtype=dtype)).to(d)
+        state = CheckpointStore(MODELS).load_state("model_291", net)
+        step = make_train_step(make_optimizer(
+            cfg.train.lr, cfg.train.momentum, cfg.net.l2), cfg.train.loss_mode)
+        t = time.perf_counter()
+        state, m = step(state, *(torch.from_numpy(x).to(d) for x in batch))
+        params = torch.cat([p.detach().reshape(-1).double().cpu()
+                            for p in net.parameters()])
+        out[name] = (float(m["loss"]), float(m["grad_norm"]), params,
+                     time.perf_counter() - t)
+        check(float(m["nonfinite"]) == 0.0, f"{name} train step non-finite")
+    card, cpu, cpu32 = out["card"], out["cpu"], out["cpu32"]
+    errs = {}
+    for i, k in enumerate(("loss", "grad_norm")):
+        gap = max(abs(cpu[i] - cpu32[i]), 2.0 ** -8 * abs(cpu32[i]))
+        errs[k] = (abs(card[i] - cpu[i]), 2 * gap)
+    gap = float((cpu[2] - cpu32[2]).norm())
+    errs["params_l2"] = (float((card[2] - cpu[2]).norm()), 2 * gap)
+    log(f"train step card vs CPU (bf16, model_291, {len(idx)} rows of the "
+        "new replay): " + ", ".join(f"{k} err {e:.4g} (tolerance {tol:.4g})"
+                                for k, (e, tol) in errs.items())
+        + f"; loss {card[0]:.6f} card, {cpu[0]:.6f} CPU, {cpu32[0]:.6f} "
+        f"CPU float32; CPU steps {cpu[3]:.2f} s bf16, {cpu32[3]:.2f} s float32")
+    for k, (e, tol) in errs.items():
+        check(e <= tol, f"train step on the card differs from the CPU in {k}: "
+              f"{e:.4g} > {tol:.4g}")
+
+
+def phase_generation(dev, seed, card):
+    """One whole generation of Pipeline.run at strength_9x9_xl from
+    model_291, nothing cut: 512 self-play games at 384 slots, 256 train
+    steps at batch 256, 128 gate games of model_292 against model_291.
+    Then model_292 is read back bit-equal to the trained state, the
+    replay holds the self-play and gate moves, each phase's kernel
+    launches match its steps and moves, and one train step on the card
+    is held to the CPU."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from sejonggo_torch import ops
+    from sejonggo_torch import pipeline as pl
+    from sejonggo_torch.config import strength_9x9_xl
+    from sejonggo_torch.learn import restore
+    from sejonggo_torch.learn.checkpoint import state_tree
+
+    cfg = strength_9x9_xl()
+    check((cfg.selfplay.num_games, cfg.selfplay.game_batch,
+           cfg.train.epochs_per_save * cfg.train.iters_per_epoch,
+           cfg.train.batch_size, cfg.eval.num_games)
+          == (GEN_GAMES, XL_GAMES, GEN_STEPS, GEN_BATCH, GATE_GAMES),
+          "the strength_9x9_xl generation moved")
+    rounds = cfg.search.simulations // cfg.search.batch_size
+    step_cap = 2 * (cfg.go.max_moves + 1)   # every game ends by the cap
+    phases = {}
+
+    class CountedSelfPlay(pl.ContinuousSelfPlay):
+        def run(self, num_games, **kw):
+            before = ops.kernel_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            games = super().run(num_games, max_steps=step_cap, **kw)
+            torch.cuda.synchronize()
+            after = ops.kernel_launches()
+            phases["selfplay"] = dict(
+                steps=self.steps, games=len(games),
+                secs=time.perf_counter() - t,
+                launches={k: after[k] - before[k] for k in after})
+            return games
+
+    def counted_eval(*args, **kw):
+        before = ops.kernel_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_eval(*args, **kw)
+        torch.cuda.synchronize()
+        after = ops.kernel_launches()
+        phases["gate"] = dict(
+            moves=[gb.actions.shape[0] for gb in out["game_batches"]],
+            secs=time.perf_counter() - t,
+            launches={k: after[k] - before[k] for k in after})
+        return out
+
+    real_actor, real_eval = pl.ContinuousSelfPlay, pl.evaluate_models
+    workdir = tempfile.mkdtemp(prefix="sejonggo_generation_")
+    try:
+        models = os.path.join(workdir, cfg.model_dir)
+        os.makedirs(models)
+        for f in ("model_291.msgpack", "index.json"):
+            shutil.copy(os.path.join(MODELS, f), models)
+        pl.ContinuousSelfPlay, pl.evaluate_models = CountedSelfPlay, counted_eval
+        pipe = pl.Pipeline(cfg, workdir, seed, device=dev)
+        saved = {}
+        real_save = pipe.store.save_state
+
+        def save_state(name, state):
+            saved[name] = state_tree(state)
+            real_save(name, state)
+
+        pipe.store.save_state = save_state
+        ops.reset_kernel_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        (res,) = pipe.run(generations=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = ops.kernel_launches()
+        ops.check_kernel_errors(dev)
+        sp, tr, ev = res["selfplay"], res["train"], res["evaluate"]
+        check(pipe.store.latest_name() == "model_292",
+              f"latest is {pipe.store.latest_name()!r}, not model_292")
+        want_best = "model_292" if ev["promote"] else "model_291"
+        check(pipe.store.best_name() == res["best"] == want_best,
+              f"best is {pipe.store.best_name()!r} with promote "
+              f"{ev['promote']}")
+        check(tr["nonfinite_windows"] == 0,
+              f"{tr['nonfinite_windows']} non-finite train windows")
+        written = restore(os.path.join(models, "model_292.msgpack"))
+        check(same_tree(written, saved["model_292"]),
+              "model_292.msgpack differs from the trained state")
+        check(int(written["step"]) == MODEL_291_STEP + GEN_STEPS,
+              f"model_292 step {int(written['step'])}, expected model_291's "
+              f"{MODEL_291_STEP} + {GEN_STEPS} (no step skipped)")
+        moves = sp["moves"] + ev["eval_moves_to_replay"]
+        check(pipe.replay.total_moves == moves and len(pipe.replay)
+              == min(moves, pipe.replay.capacity),
+              f"replay holds {len(pipe.replay)} rows of "
+              f"{pipe.replay.total_moves} moves, expected {moves}")
+        sp_p, gate_p = phases["selfplay"], phases["gate"]
+        check(sp["games"] >= cfg.selfplay.num_games,
+              f"{sp['games']} self-play games in {sp_p['steps']} steps")
+        steps, lock = sp_p["steps"], sum(gate_p["moves"])
+        check(sp_p["launches"] == {"gostep": rounds * steps,
+                                   "flood": 6 * steps},
+              f"self-play launches {sp_p['launches']} in {steps} steps")
+        check(gate_p["launches"] == {
+            "gostep": rounds * lock,
+            "flood": 4 * lock + 2 * len(gate_p["moves"])},
+            f"gate launches {gate_p['launches']} in {gate_p['moves']} moves")
+        check(counts == {k: sp_p["launches"][k] + gate_p["launches"][k]
+                         for k in counts}, f"generation launches {counts}: "
+              "the train phase launched a Go kernel")
+        train_parity(pipe.replay, dev, seed)
+    finally:
+        pl.ContinuousSelfPlay, pl.evaluate_models = real_actor, real_eval
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    flops = 3 * forward_flops(cfg.net) * cfg.train.batch_size
+    train_ms = 1e3 * tr["seconds"] / tr["steps"]
+    tflops = flops / (train_ms * 1e-3) / 1e12
+    gate_ms = 1e3 * gate_p["secs"] / lock
+    log(f"generation on {card}: {secs:.2f} s in all")
+    log(f"generation self-play: {sp['games']} games, {sp['moves']} moves in "
+        f"{steps} steps, {sp['seconds']:.2f} s, {sp['moves_per_s']:.1f} "
+        f"moves/s, {sp['env_steps_per_s']:.1f} env-steps/s, "
+        f"{1e3 * sp_p['secs'] / steps:.1f} ms per step at B={XL_GAMES}; "
+        f"resign threshold {sp['resign_threshold']}, resigned "
+        f"{sp['resigned_games']}, holdout {sp['holdout_games']} "
+        f"(winner dip rate {sp['winner_dip_rate']:.3f}); launches "
+        f"{sp_p['launches']}")
+    log(f"generation train: {tr['steps']} steps at batch "
+        f"{cfg.train.batch_size} in {tr['seconds']:.2f} s, {train_ms:.2f} ms "
+        f"per step (sampling, copy and the checkpoint write included), "
+        f"{tr['samples_per_s']:.1f} samples/s, {flops / 1e9:.1f} GFLOP a step "
+        f"from the shapes = {tflops:.2f} TFLOP/s, "
+        f"{100 * tflops / 989:.2f}% of the 989 TFLOP/s bf16 peak; loss "
+        f"{tr['loss']:.4f}, policy_ce {tr['policy_ce']:.4f}, value_mse "
+        f"{tr['value_mse']:.4f}, grad_norm {tr['grad_norm']:.4f}")
+    log(f"generation gate: model_292 vs model_291, {ev['games']} games, "
+        f"{lock} lockstep moves in {gate_p['secs']:.2f} s = {gate_ms:.1f} ms "
+        f"per move, win rate {ev['winrate']:.4f} ({ev['wins']} wins, "
+        f"{ev['draws']} draws), promote {ev['promote']}, best "
+        f"{res['best']}; launches {gate_p['launches']}; replay "
+        f"{moves} moves")
+    return counts, dict(secs=secs, selfplay_steps=steps, gate_moves=lock,
+                        train_ms=train_ms, gate_ms=gate_ms)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -761,13 +995,19 @@ def main() -> int:
     ops.check_kernel_errors(dev)
     log(f"phase 9 determinism: ok in {time.perf_counter() - t:.2f} s")
     del actor
+    t = time.perf_counter()
+    gen_counts, gen = phase_generation(dev, args.seed, card)
+    log(f"phase 10 generation: ok in {time.perf_counter() - t:.2f} s")
 
     for row in (gostep_row, flood_row):
         name = row["name"]
         row.update(launches=counts[name],
                    launches_selfplay=sp_counts[name],
                    selfplay_steps=sp["steps"],
-                   launches_gate=gate_counts[name], gate_moves=gate["moves"])
+                   launches_gate=gate_counts[name], gate_moves=gate["moves"],
+                   launches_generation=gen_counts[name],
+                   generation_selfplay_steps=gen["selfplay_steps"],
+                   generation_gate_moves=gen["gate_moves"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -14,8 +14,10 @@ names mirror the JAX package so each module's counterpart is easy to find:
 - ``search`` — the array-backed batched MCTS;
 - ``actor``  — the move step, whole self-play and evaluation games,
                continuous self-play and the resign calibrator;
-- ``learn``  — the gate and the read side of the checkpoint store, with
-               its own msgpack decoder.
+- ``learn``  — the train step, the replay buffer, the gate and the
+               checkpoint store, with its own msgpack decoder and encoder;
+- ``utils``  — metrics logging and timing;
+- ``pipeline`` — the closed loop: self-play, train, checkpoint, gate.
 
 Entry points default to ``device="cuda"`` and raise if CUDA is absent;
 the CPU is used only when the caller passes it explicitly.

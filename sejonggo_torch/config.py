@@ -1,6 +1,6 @@
 """Typed configuration (a copy of the parts of sejonggo_tpu/config.py the
-port uses: GoConfig, NetConfig, SearchConfig, SelfPlayConfig, EvalConfig,
-Config and the 9x9 presets).
+port uses: GoConfig, NetConfig, SearchConfig, SelfPlayConfig, TrainConfig,
+EvalConfig, Config and the 9x9 presets).
 
 Kept as its own copy so the port never imports the JAX package.
 """
@@ -84,6 +84,32 @@ class SelfPlayConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training schedule (reference conf.py:43-49, model.py:93)."""
+
+    batch_size: int = 32           # TRAIN_BATCH_SIZE
+    iters_per_epoch: int = 64      # NUM_WORKERS (misnamed in reference)
+    epochs_per_save: int = 300     # EPOCHS_PER_SAVE
+    lr: float = 1e-2
+    momentum: float = 0.9
+    replay_window: int = 500_000   # N_MOST_RECENT_GAMES, counted in moves
+    # 'reference' applies mse+crossentropy to BOTH heads (model.py:49-52
+    # quirk); 'agz' is crossentropy(policy) + mse(value).
+    loss_mode: str = "agz"
+    # ReduceLROnPlateau (reference main_training.py:72): after
+    # `lr_plateau_patience` train phases without loss improvement, LR is
+    # multiplied by `lr_plateau_factor` (0.0 disables), floored at
+    # `lr_min`.
+    lr_plateau_factor: float = 0.0
+    lr_plateau_patience: int = 8
+    lr_min: float = 1e-4
+    # Abort a train phase after this many CONSECUTIVE non-finite-loss
+    # batches (each one skips its update; reference TerminateOnNaN,
+    # train.py:34).
+    max_consecutive_nonfinite: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
 class EvalConfig:
     """Evaluator gating (reference conf.py:52-53, evaluator.py:23-47)."""
 
@@ -96,13 +122,18 @@ class EvalConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The slices of the JAX package's Config that the port runs."""
+    """The slices of the JAX package's Config that the port runs (the
+    multi-device DistConfig waits for multi-card play)."""
 
     go: GoConfig = dataclasses.field(default_factory=GoConfig)
     net: NetConfig = dataclasses.field(default_factory=NetConfig)
     search: SearchConfig = dataclasses.field(default_factory=SearchConfig)
     selfplay: SelfPlayConfig = dataclasses.field(default_factory=SelfPlayConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    model_dir: str = "sp_models"
+    selfplay_dir: str = "sp_self_play_data"
+    log_dir: str = "logs"
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -117,6 +148,8 @@ def small_9x9(**overrides) -> Config:
         search=SearchConfig(simulations=64, batch_size=8),
         selfplay=SelfPlayConfig(num_games=16, stop_exploration=8,
                                 game_batch=8),
+        train=TrainConfig(batch_size=32, iters_per_epoch=8,
+                          epochs_per_save=2, replay_window=512),
         eval=EvalConfig(num_games=8),
     )
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
@@ -135,6 +168,10 @@ def strength_9x9(**overrides) -> Config:
         # even under a capped threshold
         selfplay=SelfPlayConfig(num_games=512, stop_exploration=12,
                                 game_batch=512, resignation_percent=1.0),
+        train=TrainConfig(batch_size=256, iters_per_epoch=64,
+                          epochs_per_save=4, replay_window=80_000,
+                          lr=2e-2, lr_plateau_factor=0.5,
+                          lr_plateau_patience=12, lr_min=2e-3),
         eval=EvalConfig(num_games=128),
     )
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
@@ -144,7 +181,7 @@ def strength_9x9_xl(**overrides) -> Config:
     """Scaled 9x9 strength point (sejonggo_tpu.config.strength_9x9_xl):
     the strength_9x9 net (6x96, bf16), 192 simulations in rounds of 32
     leaves, 256 tree slots, calibrated resignation live under a -0.90
-    cap, 384 games in lockstep."""
+    cap, 384 games in lockstep, learning rate 1e-2."""
     base = strength_9x9()
     cfg = base.replace(
         search=dataclasses.replace(base.search, simulations=192,
@@ -152,5 +189,6 @@ def strength_9x9_xl(**overrides) -> Config:
         selfplay=dataclasses.replace(
             base.selfplay, resignation_percent=0.10,
             resignation_cap=-0.90, game_batch=384),
+        train=dataclasses.replace(base.train, lr=1e-2),
     )
     return dataclasses.replace(cfg, **overrides) if overrides else cfg

@@ -18,6 +18,15 @@ compute-dtype activations with its float32 statistics, normalises in
 float32 and rounds its output once to the compute dtype, as flax's
 ``_normalize`` does (one pass over the activations).  The weights are cast
 to the compute dtype once and the copy is kept until a weight changes.
+
+``forward(boards, train=True)`` is flax's ``train=True`` apply:
+BatchNorm normalises with the batch's own statistics, the biased
+variance computed in float32 as mean(x²) − mean(x)² (flax's
+``use_fast_variance``), and the forward also returns each BatchNorm's
+batch (mean, var).  It writes no module state: the train step folds the
+statistics into the running averages flax's way (``fold_batch_stats``),
+only when its update is kept.  The mode is chosen per call, never by
+``nn.Module.train()``/``eval()``.
 """
 from __future__ import annotations
 
@@ -62,6 +71,41 @@ def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, *_weights(lin, x.dtype))
 
 
+def _norm(bn: nn.BatchNorm2d, x: torch.Tensor, stats) -> torch.Tensor:
+    """flax BatchNorm of ``x`` (in its compute dtype, float32 inside).
+    ``stats`` None: the running statistics.  A list: the batch's own,
+    appended to it as (mean, var)."""
+    if stats is None:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+    stats.append((mean, var))
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None]
+    return (y + bn.bias[:, None, None]).to(x.dtype)
+
+
+def batch_norms(net: nn.Module) -> list:
+    """The BatchNorm layers of ``net`` in the order its train-mode
+    forward returns their batch statistics."""
+    return [m for m in net.modules() if isinstance(m, nn.BatchNorm2d)]
+
+
+def fold_batch_stats(net: nn.Module, batch_stats) -> list:
+    """The running statistics flax keeps after a train-mode apply:
+    [mean_0, var_0, mean_1, ...] with r <- 0.99 r + 0.01 batch (flax
+    ``normalization.py``: the biased batch variance; torch's own
+    BatchNorm would fold in the unbiased one)."""
+    m = 1.0 - BN_MOMENTUM
+    out = []
+    for bn, (mean, var) in zip(batch_norms(net), batch_stats):
+        out += [m * bn.running_mean + (1.0 - m) * mean,
+                m * bn.running_var + (1.0 - m) * var]
+    return out
+
+
 class ResBlock(nn.Module):
     def __init__(self, filters: int):
         super().__init__()
@@ -70,9 +114,9 @@ class ResBlock(nn.Module):
         self.conv2 = nn.Conv2d(filters, filters, 3, padding=1)
         self.bn2 = _bn(filters)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(_conv(self.conv1, x)))
-        y = self.bn2(_conv(self.conv2, y))
+    def forward(self, x, stats=None):
+        y = F.relu(_norm(self.bn1, _conv(self.conv1, x), stats))
+        y = _norm(self.bn2, _conv(self.conv2, y), stats)
         return F.relu(y + x)
 
 
@@ -109,18 +153,23 @@ class AZNet(nn.Module):
     def _flatten_nhwc(x):
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
-    def forward(self, boards: torch.Tensor):
+    def forward(self, boards: torch.Tensor, train: bool = False):
         """(B, N, N, 17) -> (policy logits (B, N*N+1), values (B, 1)),
-        both float32, computed in ``compute_dtype``."""
+        both float32, computed in ``compute_dtype``.  With ``train`` the
+        BatchNorms use batch statistics, and a third item lists each
+        one's batch (mean, var) in ``batch_norms`` order."""
+        stats = [] if train else None
         x = boards.to(self.compute_dtype).permute(0, 3, 1, 2)
-        h = F.relu(self.stem_bn(_conv(self.stem_conv, x)))
+        h = F.relu(_norm(self.stem_bn, _conv(self.stem_conv, x), stats))
         for block in self.blocks:
-            h = block(h)
-        p = F.relu(self.policy_bn(_conv(self.policy_conv, h)))
+            h = block(h, stats)
+        p = F.relu(_norm(self.policy_bn, _conv(self.policy_conv, h), stats))
         logits = _dense(self.policy_out, self._flatten_nhwc(p))
-        v = F.relu(self.value_bn(_conv(self.value_conv, h)))
+        v = F.relu(_norm(self.value_bn, _conv(self.value_conv, h), stats))
         v = F.relu(_dense(self.value_hidden, self._flatten_nhwc(v)))
         value = torch.tanh(_dense(self.value_out, v))
+        if train:
+            return logits.float(), value.float(), stats
         return logits.float(), value.float()
 
 

@@ -1,0 +1,480 @@
+"""Closed actor-learner loop: self-play -> train -> evaluate -> gate (port
+of sejonggo_tpu/pipeline.py on one device).
+
+Reference counterpart: pipeline_sequent.py / main.py:13-28 — the
+sequential loop of (self-play with best model) -> (train latest) ->
+(evaluate latest vs best) -> (promote on >55% winrate), with "best" and
+"latest" as the only global state, carried by the CheckpointStore.
+
+Every phase loads its nets from the store: self-play plays the best
+model, training updates a fresh net loaded from the latest, the gate
+plays latest against best, so play nets (eval mode) and the train net
+are separate modules.  Where the JAX loop splits a ``jax.random`` key, the
+port draws from one CPU ``torch.Generator`` seeded from ``seed``; its
+state is part of the run state.  Not ported yet: the KGS pretraining
+phase and the SGF/HDF5 game archives (they need ``io/``) and the
+multi-device and multi-host layouts.
+
+    python -m sejonggo_torch.pipeline --preset tiny --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sejonggo_torch._device import resolve_device
+from sejonggo_torch.actor import ContinuousSelfPlay, ResignCalibrator
+from sejonggo_torch.config import Config, small_9x9, strength_9x9
+from sejonggo_torch.learn import (CheckpointStore, PlateauScheduler,
+                                  ReplayBuffer, evaluate_models, game_samples,
+                                  init_train_state, load_segment,
+                                  make_optimizer, make_train_step,
+                                  save_segment)
+from sejonggo_torch.nets import (AZNet, from_jax_variables, init_variables,
+                                 make_predict_fn)
+from sejonggo_torch.utils.metrics import MetricsLogger
+
+logger = logging.getLogger("sejonggo_torch.pipeline")
+
+
+class Pipeline:
+    """Actor-learner loop on one device (``device``: CUDA unless the
+    caller names another)."""
+
+    def __init__(self, cfg: Config, workdir: str = ".", seed: int = 0,
+                 device=None):
+        self.cfg = cfg
+        self.workdir = workdir
+        self.device = resolve_device(device)
+        self.store = CheckpointStore(os.path.join(workdir, cfg.model_dir))
+        self.lr = cfg.train.lr
+        self.tx = make_optimizer(self.lr, cfg.train.momentum, cfg.net.l2)
+        # ReduceLROnPlateau (reference main_training.py:72); None = off
+        self.plateau = None
+        if cfg.train.lr_plateau_factor:
+            self.plateau = PlateauScheduler(
+                self.lr, factor=cfg.train.lr_plateau_factor,
+                patience=cfg.train.lr_plateau_patience,
+                min_lr=cfg.train.lr_min)
+        self.train_step = make_train_step(self.tx, cfg.train.loss_mode)
+        self.generator = torch.Generator().manual_seed(seed)
+        self.replay = ReplayBuffer(cfg.train.replay_window, cfg.go.size,
+                                   seed=seed)
+        self.calibrator = ResignCalibrator(
+            cfg.selfplay.resignation_percent,
+            cfg.selfplay.resignation_allowed_error, seed=seed,
+            cap=cfg.selfplay.resignation_cap)
+        self.metrics = MetricsLogger(os.path.join(workdir, "metrics.jsonl"))
+        # reference NoModelEvaluateWorker reuses eval games as training
+        # data (evaluate_worker.py:151)
+        self.eval_games_to_replay = True
+        # split-role selfplay->train data path (reference scp push per
+        # game, selfplay_worker.py:123-124): selfplay role publishes one
+        # replay segment per phase here; train role ingests new ones
+        self.segment_dir = os.path.join(workdir, "replay_segments")
+        self._segment_games = None     # per-phase accumulator (selfplay role)
+        self._segment_seq = None       # next segment index (lazy-scanned)
+        self._ingested_segments = set()  # consumed files (train role)
+
+    def set_lr(self, lr: float) -> None:
+        """Change the learning rate: a new optimiser and train step.  The
+        momentum trace lives in the train state and is kept, so
+        checkpointed optimizer state stays loadable."""
+        self.lr = lr
+        self.tx = make_optimizer(lr, self.cfg.train.momentum,
+                                 self.cfg.net.l2)
+        self.train_step = make_train_step(self.tx, self.cfg.train.loss_mode)
+        logger.info("learning rate set to %g", lr)
+
+    def _batch(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr).to(self.device)
+
+    # --- model lifecycle (reference model.py:98-157) --------------------
+
+    def _net(self) -> AZNet:
+        return AZNet.from_config(self.cfg.go.size, self.cfg.net).to(self.device)
+
+    def init_models(self):
+        """Create model_1 as best+latest if the store is empty
+        (reference create_initial_model model.py:98-122)."""
+        if self.store.latest_name() is None:
+            net = self._net()
+            net.load_state_dict(from_jax_variables(init_variables(
+                self.cfg.go.size, self.cfg.net, self.generator)))
+            self.store.save_state("model_1", init_train_state(net))
+            self.store.set_best("model_1")
+            logger.info("created initial model_1 (best)")
+
+    def load(self, name: str):
+        # fallback: a dangling/torn checkpoint degrades to the newest
+        # loadable model with a loud warning (learn/checkpoint.py)
+        return self.store.load_state_or_fallback(name, self._net())
+
+    # --- phases ---------------------------------------------------------
+
+    def selfplay_phase(self, num_games: int = 0) -> dict:
+        """Generate games with the BEST model (reference
+        main_selfplay.py / model_self_play self_play.py:293-340) using
+        the continuous respawning actor: every slot stays live instead of
+        draining a lockstep batch."""
+        cfg = self.cfg
+        best = self.store.best_name()
+        state = self.load(best)
+        n = num_games or cfg.selfplay.num_games
+        t0 = time.time()
+        actor = ContinuousSelfPlay(
+            make_predict_fn(state.net), size=cfg.go.size, komi=cfg.go.komi,
+            search=cfg.search, game_batch=cfg.selfplay.game_batch,
+            stop_exploration=cfg.selfplay.stop_exploration,
+            generator=self.generator,
+            threshold_fn=self.calibrator.threshold_for_new_game,
+            device=self.device)
+
+        moves = 0
+        resigned_games = 0
+        holdout_games = 0
+        holdout_winner_dips = 0
+        games_done = 0
+        log_every = max(1, n // 16)
+
+        def on_game(game):
+            nonlocal moves, resigned_games, holdout_games
+            nonlocal holdout_winner_dips, games_done
+            # online check of the calibration property (reference
+            # ALLOWED_ERROR=5%, self_play.py:319-330): on each HOLDOUT
+            # game (played to the end), did the eventual winner's value
+            # ever dip below the CURRENT threshold (i.e. would the
+            # winner have resigned)?  Target: dip rate <= allowed_error.
+            thr = self.calibrator.current
+            if game.get("holdout", True):
+                holdout_games += 1
+                w = int(game["winner"])
+                if thr is not None and w != 0:
+                    mask = np.asarray(game["players"]) == w
+                    if mask.any() and float(
+                            np.asarray(game["values"])[mask].min()) <= thr:
+                        holdout_winner_dips += 1
+            elif game.get("resigned"):
+                resigned_games += 1
+            self.calibrator.observe_game(game)
+            moves += self.replay.add_game(game)
+            if self._segment_games is not None:
+                self._segment_games.append(game_samples(game))
+            games_done += 1
+            if games_done % log_every == 0 or games_done == n:
+                logger.info(
+                    "selfplay progress: %d/%d games, %d moves, %.0fs",
+                    games_done, n, moves, time.time() - t0)
+
+        actor.run(n, on_game=on_game)
+        dt = time.time() - t0
+        sims = moves * cfg.search.simulations
+        stats = {
+            "model": best, "games": actor.games_finished,
+            "empty_games": actor.empty_games,
+            "moves": moves, "seconds": dt,
+            "moves_per_s": moves / max(dt, 1e-9),
+            "env_steps_per_s": sims / max(dt, 1e-9),
+            "sims_per_s": sims / max(dt, 1e-9),
+            "tree_fresh_rate": actor.tree_fresh_rate,
+            "resign_threshold": self.calibrator.current,
+            "resigned_games": resigned_games,
+            "holdout_games": holdout_games,
+            "holdout_winner_dips": holdout_winner_dips,
+            "winner_dip_rate": (holdout_winner_dips / holdout_games
+                                if holdout_games else 0.0),
+        }
+        logger.info("selfplay: %s", stats)
+        return dict(self.metrics.log("selfplay", phase="selfplay", **stats))
+
+    # --- split-role selfplay->train data path (reference pushes every
+    # finished game to the training server over scp as it completes,
+    # selfplay_worker.py:123-124, scpy.py:68-107; here the selfplay role
+    # publishes one atomic replay segment per phase and the train role
+    # ingests new ones each iteration over the shared workdir) ----------
+
+    def _publish_segment(self) -> Optional[str]:
+        """Write the games accumulated this phase as one atomic replay
+        segment under `segment_dir`; returns the path (None if no
+        moves were produced)."""
+        games = [g for g in (self._segment_games or []) if g[0].shape[0]]
+        self._segment_games = []
+        if not games:
+            return None
+        os.makedirs(self.segment_dir, exist_ok=True)
+        prefix = "seg_p0_"
+        if self._segment_seq is None:
+            existing = [int(f[len(prefix):-4])
+                        for f in os.listdir(self.segment_dir)
+                        if f.startswith(prefix) and f.endswith(".npz")]
+            self._segment_seq = max(existing, default=-1) + 1
+        path = os.path.join(self.segment_dir,
+                            f"{prefix}{self._segment_seq:06d}.npz")
+        self._segment_seq += 1
+        save_segment(path,
+                     np.concatenate([g[0] for g in games]),
+                     np.concatenate([g[1] for g in games]),
+                     np.concatenate([g[2] for g in games]))
+        return path
+
+    def ingest_segments(self) -> int:
+        """Train-role ingestion: load every replay segment not yet
+        consumed into the replay window; returns moves added.  Segments
+        are written atomically (tmp + os.replace) so a concurrent read
+        never sees a torn file."""
+        if not os.path.isdir(self.segment_dir):
+            return 0
+        added = 0
+        for fname in sorted(os.listdir(self.segment_dir)):
+            if not fname.endswith(".npz") or fname in self._ingested_segments:
+                continue
+            boards, policies, values = load_segment(
+                os.path.join(self.segment_dir, fname))
+            added += self.replay.add_samples(boards, policies, values)
+            self._ingested_segments.add(fname)
+        return added
+
+    def train_phase(self) -> dict:
+        """Train the latest model on the replay window and save
+        model_<N+1> (reference train.py:24-72, TrainWorker)."""
+        cfg = self.cfg
+        latest = self.store.latest_name()
+        state = self.load(latest)
+        steps = cfg.train.epochs_per_save * cfg.train.iters_per_epoch
+        t0 = time.time()
+        # per-step loss curves, downsampled (reference streams per-step
+        # TB scalars via the fake-epoch trick, train.py:63-70)
+        log_every = max(1, steps // 32)
+        curve_keys = ("loss", "policy_ce", "value_mse", "grad_norm")
+        sums, n_logged = {}, 0
+        skipped = consecutive_bad = 0
+        try:
+            for i in range(steps):
+                boards, policies, values = self.replay.sample(
+                    cfg.train.batch_size)
+                state, metrics = self.train_step(
+                    state, self._batch(boards), self._batch(policies),
+                    self._batch(values))
+                if (i + 1) % log_every == 0 or i + 1 == steps:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    self.metrics.log("train_step", phase="train",
+                                     model=latest, step=i + 1, lr=self.lr,
+                                     **m)
+                    # nonfinite batches skip their update inside the step
+                    # (learn/train.py guard); count the whole logged
+                    # window as bad so K consecutive windows abort
+                    if m.get("nonfinite"):
+                        skipped += 1
+                        consecutive_bad += 1
+                        limit = cfg.train.max_consecutive_nonfinite
+                        if consecutive_bad >= max(limit // log_every, 2):
+                            raise FloatingPointError(
+                                f"{consecutive_bad} consecutive non-finite "
+                                f"training windows (step {i + 1})")
+                    else:
+                        consecutive_bad = 0
+                        for k in curve_keys:
+                            if k in m:
+                                sums[k] = sums.get(k, 0.0) + m[k]
+                        n_logged += 1
+        except BaseException:
+            # crash-save (reference atexit exit_backup.h5 save,
+            # main_training.py:22-25,101): keep the in-flight state
+            self.store.save_state("exit_backup", state)
+            logger.exception("train phase aborted; state saved as "
+                             "'exit_backup'")
+            raise
+        name = self.store.next_name()
+        self.store.save_state(name, state)
+        dt = time.time() - t0
+        means = {k: v / max(n_logged, 1) for k, v in sums.items()}
+        stats = {
+            "from": latest, "to": name, "steps": steps,
+            "seconds": dt, "steps_per_s": steps / max(dt, 1e-9),
+            "samples_per_s": steps * cfg.train.batch_size / max(dt, 1e-9),
+            "lr": self.lr, "nonfinite_windows": skipped,
+            **means,
+        }
+        logger.info("train: %s", stats)
+        stats = dict(self.metrics.log("train", phase="train", **stats))
+        if self.plateau is not None and "loss" in means:
+            new_lr = self.plateau.update(means["loss"])
+            if new_lr is not None:
+                self.set_lr(new_lr)
+        return stats
+
+    def evaluate_phase(self) -> dict:
+        """Latest vs best gating (reference evaluator.py:23-47)."""
+        cfg = self.cfg
+        latest = self.store.latest_name()
+        best = self.store.best_name()
+        if latest == best:
+            return {"phase": "evaluate", "skipped": True}
+        predict_latest = make_predict_fn(self.load(latest).net)
+        predict_best = make_predict_fn(self.load(best).net)
+        n_games = cfg.eval.num_games
+        res = evaluate_models(
+            predict_latest, predict_best,
+            size=cfg.go.size, komi=cfg.go.komi, search=cfg.search,
+            eval_cfg=cfg.eval, generator=self.generator,
+            game_batch=min(n_games, cfg.selfplay.game_batch),
+            max_moves=cfg.eval.max_moves,
+            collect_games=self.eval_games_to_replay, device=self.device)
+        eval_moves = 0
+        for gb in res.pop("game_batches", []):
+            # reference NoModelEvaluateWorker saves evaluation games as
+            # training data (evaluate_worker.py:151)
+            eval_moves += self.replay.add_game_batch(gb)
+        res["eval_moves_to_replay"] = eval_moves
+        if res["promote"]:
+            self.store.set_best(latest)  # evaluator.py:43-46
+            logger.info("promoted %s to best (winrate %.3f)", latest,
+                        res["winrate"])
+        return dict(self.metrics.log("evaluate", phase="evaluate",
+                                     latest=latest, best=best, **res))
+
+    # --- run-state checkpoint/resume (beyond the reference, which only
+    # checkpoints model files — SURVEY.md §5) --------------------------
+
+    def save_run_state(self) -> None:
+        """Persist replay window + resign calibration + the generator's
+        state so a crashed or preempted run resumes exactly."""
+        self.replay.save(os.path.join(self.workdir, "replay.npz"))
+        meta = {
+            "rng": self.generator.get_state().tolist(),
+            "calibrator": {
+                "min_values": self.calibrator.min_values,
+                "current": self.calibrator.current,
+            },
+            "lr": self.lr,
+            "plateau": self.plateau.state_dict() if self.plateau else None,
+        }
+        meta_path = os.path.join(self.workdir, "run_state.json")
+        with open(meta_path + ".tmp", "w") as f:
+            json.dump(meta, f)
+        os.replace(meta_path + ".tmp", meta_path)
+
+    def load_run_state(self) -> bool:
+        replay_path = os.path.join(self.workdir, "replay.npz")
+        meta_path = os.path.join(self.workdir, "run_state.json")
+        if not (os.path.exists(replay_path) and os.path.exists(meta_path)):
+            return False
+        self.replay = ReplayBuffer.load(
+            replay_path, self.cfg.train.replay_window, self.cfg.go.size)
+        with open(meta_path) as f:
+            meta = json.load(f)
+        self.generator.set_state(torch.tensor(meta["rng"], dtype=torch.uint8))
+        self.calibrator.min_values = meta["calibrator"]["min_values"]
+        self.calibrator.current = meta["calibrator"]["current"]
+        if self.plateau is not None and meta.get("plateau"):
+            self.plateau.load_state_dict(meta["plateau"])
+        lr = meta.get("lr", self.lr)
+        if lr != self.lr:
+            self.set_lr(lr)
+        return True
+
+    def run(self, generations: int = 1, selfplay_games: int = 0):
+        self.init_models()
+        results = []
+        for gen in range(generations):
+            sp = self.selfplay_phase(selfplay_games)
+            tr = self.train_phase()
+            ev = self.evaluate_phase()
+            self.save_run_state()
+            results.append({"generation": gen, "selfplay": sp, "train": tr,
+                            "evaluate": ev, "best": self.store.best_name()})
+        return results
+
+    # --- deployment-role loops (reference main_selfplay.py:9-29,
+    # main_training.py:34-98, main_spe.py:10-35): split the generation
+    # loop across processes that share the workdir. -------------------
+
+    def run_selfplay_role(self, iterations: int = 0,
+                          selfplay_games: int = 0):
+        """Self-play server: generate games with the current best model,
+        re-reading the best pointer each round (iterations=0 = forever)."""
+        self.init_models()
+        i = 0
+        while iterations == 0 or i < iterations:
+            self._segment_games = []
+            self.selfplay_phase(selfplay_games)
+            self._publish_segment()
+            self.save_run_state()
+            i += 1
+
+    def run_train_role(self, iterations: int = 0):
+        """Training server: continuously ingest replay segments
+        published by selfplay-role processes and train (the run-state
+        snapshot is the fallback when no segments exist)."""
+        self.init_models()
+        i = 0
+        while iterations == 0 or i < iterations:
+            self.ingest_segments()
+            if len(self.replay) < self.cfg.train.batch_size:
+                if not self._ingested_segments:
+                    self.load_run_state()
+                if len(self.replay) < self.cfg.train.batch_size:
+                    time.sleep(1.0)
+                    continue
+            self.train_phase()
+            i += 1
+
+    def run_spe_role(self, iterations: int = 0, selfplay_games: int = 0):
+        """Self-play + evaluate server (reference main_spe.py)."""
+        self.init_models()
+        i = 0
+        while iterations == 0 or i < iterations:
+            self._segment_games = []
+            self.selfplay_phase(selfplay_games)
+            self._publish_segment()
+            self.evaluate_phase()
+            self.save_run_state()
+            i += 1
+
+
+def main(argv=None):
+    from sejonggo_torch.utils.metrics import setup_logging
+
+    parser = argparse.ArgumentParser(description="sejonggo_torch pipeline")
+    parser.add_argument("--preset", choices=["tiny", "strength"],
+                        default="tiny")
+    parser.add_argument("--generations", type=int, default=1)
+    parser.add_argument("--games", type=int, default=0,
+                        help="self-play games per generation (0 = preset)")
+    parser.add_argument("--workdir", default="runs/pipeline")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--role",
+                        choices=["full", "selfplay", "train", "spe"],
+                        default="full",
+                        help="deployment role (reference main_selfplay/"
+                        "main_training/main_spe); 'full' runs the closed "
+                        "loop")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default cuda; 'cpu' to run on "
+                        "the CPU)")
+    args = parser.parse_args(argv)
+
+    cfg = {"tiny": small_9x9, "strength": strength_9x9}[args.preset]()
+    os.makedirs(args.workdir, exist_ok=True)
+    setup_logging(os.path.join(args.workdir, cfg.log_dir))
+    pipe = Pipeline(cfg, args.workdir, seed=args.seed, device=args.device)
+    if args.role == "selfplay":
+        pipe.run_selfplay_role(args.generations, args.games)
+    elif args.role == "train":
+        pipe.run_train_role(args.generations)
+    elif args.role == "spe":
+        pipe.run_spe_role(args.generations, args.games)
+    else:
+        for r in pipe.run(args.generations, args.games):
+            print(r)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Times of the move step's parts on one CUDA card: the net call, the
 expand/backup of one search round, and the whole move step at the bench
-point.
+point; and of the strength_9x9_xl train step.
 
     python sejonggo_torch/time_parts.py [--root DIR] [--label NAME] [--seed 0]
 
@@ -20,11 +20,17 @@ expand/backup is timed on the arguments of the last round of the last
 move played (the sixth at the bench point, the second at xl), captured
 from the move step, by CUDA events around its calls: host time between
 launches counts, as it does in the move step.  The bench point's move
-step is timed over moves 3-6.  Prints one JSON line.
+step is timed over moves 3-6.  The train step (batch 256, the 6x96 bf16
+net, seeded weights, a seeded replay of 8,192 rows) is timed three ways:
+host ms a step as the pipeline runs it (sample, copy to the card, step),
+the step alone on a batch already on the card (CUDA events), and the
+device time and kernel launches of one step from ``torch.profiler``, with
+the operations that take the most device time.  Prints one JSON line.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import sys
@@ -111,6 +117,78 @@ def run_moves(predict, search, b, n, seed, dev):
     return secs, captured["call"]
 
 
+def time_train(seed, dev, reps):
+    """The xl train step: host ms as the pipeline runs it, event ms on a
+    batch on the card, profiler device ms, launches and top operations."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch.config import strength_9x9_xl
+    from sejonggo_torch.learn import (ReplayBuffer, init_train_state,
+                                      make_optimizer, make_train_step)
+    from sejonggo_torch.nets import (AZNet, from_jax_variables,
+                                     seeded_flax_variables)
+
+    cfg = strength_9x9_xl()
+    net = AZNet.from_config(9, cfg.net)
+    net.load_state_dict(from_jax_variables(
+        seeded_flax_variables(9, cfg.net, seed)))
+    state = init_train_state(net.to(dev))
+    step = make_train_step(make_optimizer(
+        cfg.train.lr, cfg.train.momentum, cfg.net.l2), cfg.train.loss_mode)
+    rng = np.random.RandomState(seed)
+    n, bs = 8192, cfg.train.batch_size
+    replay = ReplayBuffer(n, 9, seed)
+    replay.add_samples((rng.rand(n, 9, 9, 17) < 0.3).astype(np.int8),
+                       rng.rand(n, 82).astype(np.float32),
+                       rng.choice([-1.0, 1.0], size=n).astype(np.float32))
+    on_card = [torch.from_numpy(x).to(dev) for x in replay.sample(bs)]
+
+    def pipeline_step():
+        nonlocal state
+        state, _ = step(state, *(torch.from_numpy(x).to(dev)
+                                 for x in replay.sample(bs)))
+
+    def card_step():
+        nonlocal state
+        state, _ = step(state, *on_card)
+
+    for _ in range(3):
+        pipeline_step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        pipeline_step()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t) / reps
+    event_ms = events_ms(card_step, reps)
+    act = torch.profiler.ProfilerActivity
+    steps = 5
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(steps):
+            card_step()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    # the device's own rows (kernels, copies): an operator's row repeats
+    # the time of the kernels it launched
+    kernels = [e for e in rows
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / steps / 1e3
+
+    top = sorted(kernels, key=dev_ms, reverse=True)[:8]
+    return {
+        "host_ms": host_ms, "event_ms": event_ms,
+        "profiler_device_ms": sum(dev_ms(e) for e in kernels),
+        "device_rows": sum(e.count for e in kernels) / steps,
+        "launches": sum(e.count for e in rows
+                        if e.key == "cudaLaunchKernel") / steps,
+        "top_device_ms": {e.key[:80]: dev_ms(e) for e in top},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(
@@ -156,6 +234,9 @@ def main() -> int:
                                       / sum(timed))
         else:
             out["xl_move_ms"] = [1e3 * s for s in secs]
+    # trees from before the training slice have no train step
+    if importlib.util.find_spec("sejonggo_torch.learn.train") is not None:
+        out["train"] = time_train(args.seed, dev, args.reps)
     print(json.dumps(out), flush=True)
     return 0
 

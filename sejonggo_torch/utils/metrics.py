@@ -1,0 +1,88 @@
+"""Metrics and timing (a copy of sejonggo_tpu/utils/metrics.py without its
+JAX-profiler hook).
+
+Reference counterpart: wall-clock deltas in tqdm descriptions and log
+lines (self_play.py:332-334, evaluator.py:38), TensorBoard scalar
+writing via the fake-epoch trick (train.py:63-70), rotating-file
+logging config (app_log.py, logconfig.json).  Here: a JSONL metrics
+stream with env-steps/s and sims/s counters.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Dict, Optional
+
+
+class Timer:
+    """Context manager measuring wall seconds; .rate(n) = n/seconds."""
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        self.seconds = 0.0
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.start
+        return False
+
+    def rate(self, n: float) -> float:
+        return n / max(self.seconds, 1e-9)
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics (one dict per event)."""
+
+    def __init__(self, path: Optional[str] = None):
+        self.path = path
+        self.events = []
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def log(self, event: str, **fields) -> Dict:
+        rec = {"event": event, "ts": time.time(), **fields}
+        self.events.append(rec)
+        if self.path:
+            with open(self.path, "a") as f:
+                f.write(json.dumps(rec, default=float) + "\n")
+        return rec
+
+    def last(self, event: str) -> Optional[Dict]:
+        for rec in reversed(self.events):
+            if rec["event"] == event:
+                return rec
+        return None
+
+
+def setup_logging(log_dir: Optional[str] = None, level: int = 20,
+                  max_bytes: int = 10 * 1024 * 1024,
+                  backup_count: int = 5) -> None:
+    """Rotating-file logging (reference app_log.py:6-24 + logconfig.json:
+    rotating info/debug/errors files plus console).  With log_dir=None
+    only the console handler is installed."""
+    import logging
+    from logging.handlers import RotatingFileHandler
+
+    root = logging.getLogger()
+    # keep root at `level` (a global DEBUG root makes library loggers
+    # flood the files); the debug.log handler still captures package
+    # debug when callers lower individual logger levels
+    root.setLevel(level)
+    fmt = logging.Formatter(
+        "%(asctime)s %(levelname)s %(name)s %(message)s")
+    console = logging.StreamHandler()
+    console.setLevel(level)
+    console.setFormatter(fmt)
+    root.addHandler(console)
+    if not log_dir:
+        return
+    os.makedirs(log_dir, exist_ok=True)
+    for fname, lvl in (("info.log", logging.INFO),
+                       ("debug.log", logging.DEBUG),
+                       ("errors.log", logging.ERROR)):
+        h = RotatingFileHandler(os.path.join(log_dir, fname),
+                                maxBytes=max_bytes, backupCount=backup_count)
+        h.setLevel(lvl)
+        h.setFormatter(fmt)
+        root.addHandler(h)

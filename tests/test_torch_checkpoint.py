@@ -96,7 +96,7 @@ def test_store_names_and_pointers_like_jax(tmp_path):
     assert store.best_name() == jstore.best_name() == "model_7"
     assert store.exists("model_3") and not store.exists("model_4")
     empty = CheckpointStore(str(tmp_path / "nothing"))
-    (tmp_path / "nothing").mkdir()
+    assert (tmp_path / "nothing").is_dir()      # made, as JAX's store does
     assert empty.latest_name() is None and empty.best_name() is None
 
 

@@ -18,7 +18,9 @@ from sejonggo_torch import ops
 from sejonggo_torch.actor import init_state, make_move_step, play_games
 from sejonggo_torch.config import NetConfig, SearchConfig, strength_9x9_xl
 from sejonggo_torch.goenv.positions import random_positions
-from sejonggo_torch.learn import CheckpointStore
+from sejonggo_torch.learn import (CheckpointStore, init_train_state,
+                                  make_optimizer, make_train_step)
+from sejonggo_torch.learn.checkpoint import state_tree
 from sejonggo_torch.nets import (AZNet, dummy_predict_fn, from_jax_variables,
                                  make_predict_fn, seeded_flax_variables)
 
@@ -280,3 +282,57 @@ def test_backup_repeats_bit_equal(cuda):
         a, c = getattr(s1.trees, name), getattr(s2.trees, name)
         assert torch.equal(a, c), name
     assert float(s1.trees.child_W.abs().sum()) > 0
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Three float32 train steps (TF32 off) of a seeded 2x16 net on the
+    card and on the CPU: loss, grad norm, parameters, BatchNorm
+    statistics, momentum trace and step agree within 1e-4 (sums in
+    another order)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = NetConfig(blocks=2, filters=16, value_hidden=16,
+                    compute_dtype="float32")
+    variables = seeded_flax_variables(9, cfg, 4)
+    rng = np.random.RandomState(4)
+    batches = []
+    for _ in range(3):
+        boards = (rng.rand(32, 9, 9, 17) < 0.3).astype(np.float32)
+        policy = rng.rand(32, 82).astype(np.float32)
+        batches.append((boards, policy / policy.sum(-1, keepdims=True),
+                        rng.choice([-1.0, 1.0], size=32).astype(np.float32)))
+    out = {}
+    for d in (cuda, torch.device("cpu")):
+        net = AZNet.from_config(9, cfg)
+        net.load_state_dict(from_jax_variables(variables))
+        state = init_train_state(net.to(d))
+        step = make_train_step(make_optimizer(2e-2))
+        for batch in batches:
+            state, m = step(state, *(torch.from_numpy(x).to(d) for x in batch))
+        out[d.type] = (state_tree(state), {k: float(v) for k, v in m.items()})
+    (gpu_tree, gpu_m), (cpu_tree, cpu_m) = out["cuda"], out["cpu"]
+    assert gpu_m["nonfinite"] == cpu_m["nonfinite"] == 0.0
+    for k in ("loss", "grad_norm"):
+        assert abs(gpu_m[k] - cpu_m[k]) <= 1e-4 * max(1.0, abs(cpu_m[k]))
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for v in t.values() for x in leaves(v)]
+        return [t]
+
+    assert int(gpu_tree["step"]) == int(cpu_tree["step"]) == 3
+    for a, b in zip(leaves(gpu_tree), leaves(cpu_tree)):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_model_291_reencodes_byte_equal_on_the_card_host(cuda, tmp_path):
+    """The port's msgpack decoder and encoder on the card's machine (no
+    msgpack package there): model_291 read into the net and optimiser
+    state and written back is the file, byte for byte."""
+    net = AZNet.from_config(9, strength_9x9_xl().net)
+    state = CheckpointStore(str(MODELS)).load_state("model_291", net.to(cuda))
+    CheckpointStore(str(tmp_path)).save_state("model_291", state)
+    assert (tmp_path / "model_291.msgpack").read_bytes() == \
+        (MODELS / "model_291.msgpack").read_bytes()
