@@ -6,7 +6,9 @@ the JAX package: B=3072 games, 64 simulations in rounds of 32 leaves, 82
 tree slots, a 4-block x 64-filter bf16 net with random weights made from
 --seed), then the strength_9x9_xl point from the committed model_291
 checkpoint (6x96, bf16): continuous self-play, the gate, and one whole
-generation of the closed loop (self-play, train, checkpoint, gate).  Holds each hand-written CUDA kernel against its
+generation of the closed loop (self-play, train, checkpoint, gate); then
+the I/O entry points: GTP play at full_19x19 width and from model_291,
+and KGS pretraining of the full_19x19 net on the committed SGF corpus.  Holds each hand-written CUDA kernel against its
 plain PyTorch version on the card.
 
     python3 chip_smoke.py [--seed 0]
@@ -31,7 +33,19 @@ model_291 with nothing cut (512 self-play games at 384 slots, 256 train
 steps at batch 256, the 128-game gate of model_292 against model_291):
 model_292 read back bit-equal to the trained state, the replay's moves,
 each phase's launch counts, and one bf16 train step on the card held to
-the CPU's.  The kernels' error word is read after every kernel phase.
+the CPU's, 11 GTP at full ``full_19x19`` width (20 x 256, 1600
+simulations in rounds of 100 leaves, weights from --seed) through
+``GTPFrontend``: genmove and play for 9 moves, sg_showtree, showboard,
+final_score (launch counts, the kept tree reused, one genmove bit-equal
+between the kernels and the plain versions on the card, the session
+replayed through the plain engine), the kernels timed at the new shapes
+(gostep at 100 leaves of 19x19, flood at one board), then a strength
+game from model_291 through ``python -m sejonggo_torch.io.gtp``, 12 KGS
+pretraining of the 20 x 256 net on the committed 19x19 corpus in a
+temporary workdir (32 steps at batch 32; model_2 read back bit-equal,
+the backup and the metric event, 4 floods a replayed move, one game
+replayed on the card and on the CPU, the train step timed alone).
+The kernels' error word is read after every kernel phase.
 Every phase prints one line with its elapsed seconds; the line before
 the last is the kernel table as JSON, the last line is
 {"ok": true, "device": {...}}.  Any failure ends
@@ -42,6 +56,7 @@ sejonggo_torch package beside it, the script exits nonzero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import faulthandler
 import json
@@ -58,6 +73,10 @@ GEN_GAMES, GEN_STEPS, GEN_BATCH = 512, 256, 256
 MODEL_291_STEP = 74240
 XL_LEAVES = (XL_GAMES * 32, GATE_GAMES * 32)   # leaves per round, k = 32
 XL_BOARDS = (XL_GAMES, GATE_GAMES)
+GTP_MOVES = 9                 # phase 11: 5 genmoves and 4 replies, 19x19
+STRENGTH_GENMOVES = 40        # phase 11: the model_291 game over GTP
+CORPUS = "runs/full19_r5/corpus"          # 48 rollout SGFs, 19x19 (in git)
+KGS_STEPS, KGS_BACKUP, KGS_TIMED_STEPS = 32, 16, 8    # phase 12
 
 T0 = time.perf_counter()
 
@@ -924,6 +943,444 @@ def phase_generation(dev, seed, card):
                         train_ms=train_ms, gate_ms=gate_ms)
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """The engine's floods and the search's leaf steps through the plain
+    PyTorch versions, on whatever device the tensors lie (the card here),
+    while the block runs."""
+    from sejonggo_torch.goenv import engine
+    from sejonggo_torch.ops import flood, gostep
+
+    saved = engine.flood_fixpoint, gostep.step_legal
+    engine.flood_fixpoint, gostep.step_legal = (flood.flood_plain,
+                                                gostep.step_legal_plain)
+    try:
+        yield
+    finally:
+        engine.flood_fixpoint, gostep.step_legal = saved
+
+
+def gtp_ok(resp: str) -> str:
+    """The text of a successful GTP response ('= ...' and a blank line)."""
+    check(resp.startswith("=") and resp.endswith("\n\n"),
+          f"malformed GTP response {resp!r}")
+    return resp[1:].strip()
+
+
+def full_net(seed, dev):
+    """The full_19x19 net (20 x 256, bf16 compute) with weights drawn on
+    the host from --seed; returns (predict, host draw seconds)."""
+    import torch
+
+    from sejonggo_torch.config import full_19x19
+    from sejonggo_torch.nets import (AZNet, from_jax_variables,
+                                     init_variables, make_predict_fn)
+
+    cfg = full_19x19()
+    t = time.perf_counter()
+    variables = init_variables(19, cfg.net, torch.Generator().manual_seed(seed))
+    draw_s = time.perf_counter() - t
+    net = AZNet.from_config(19, cfg.net)
+    net.load_state_dict(from_jax_variables(variables))
+    return make_predict_fn(net.to(dev)), draw_s
+
+
+def kernel_vs_plain_genmove(predict, board, dev, seed):
+    """One full_19x19 genmove from ``board`` twice with the same draws:
+    through the kernels and through the plain versions, both on the card.
+    The vertex, the visit counts and the value sums must be bit-equal."""
+    import torch
+
+    from sejonggo_torch.config import full_19x19
+    from sejonggo_torch.io.gtp import GoEngine
+
+    cfg = full_19x19()
+    g = torch.Generator().manual_seed(seed)
+    syms = [int(s) for s in torch.randint(0, 7, (cfg.search.rounds,),
+                                          generator=g)]
+    out, ms = {}, {}
+    for name in ("kernels", "plain"):
+        eng = GoEngine(predict, size=19, komi=7.5, search=cfg.search,
+                       device=dev, draws=lambda noise: {"syms": syms})
+        eng.board = board.clone()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if name == "plain":
+            with plain_kernels():
+                x, y, _ = eng.genmove(eng.player)
+        else:
+            x, y, _ = eng.genmove(eng.player)
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t)
+        out[name] = (x, y, eng.tree.child_N.clone(), eng.tree.child_W.clone(),
+                     eng.board.clone())
+    (kx, ky, kn, kw, kb), (px, py, pn, pw, pb) = out["kernels"], out["plain"]
+    same = ((kx, ky) == (px, py) and torch.equal(kn, pn)
+            and torch.equal(kw, pw) and torch.equal(kb, pb))
+    log(f"gtp 19x19 genmove kernels vs plain (both on the card, same draws): "
+        f"vertex {(kx, ky)} vs {(px, py)}, visits and value sums "
+        f"{'bit-equal' if same else 'DIFFERENT'}; {ms['kernels']:.1f} ms "
+        f"with the kernels, {ms['plain']:.1f} ms plain")
+    check(same, "the 19x19 genmove differs between the kernel and plain paths")
+    return ms
+
+
+def new_shape_times(seed, dev, row_gostep, row_flood):
+    """Device times of the shapes this phase gives the kernels: gostep at
+    100 leaves of 19x19 (one full_19x19 search round) and flood at one
+    board (a GTP move or a replayed SGF move), 9x9 and 19x19."""
+    import torch
+
+    from sejonggo_torch import ops
+    from sejonggo_torch.ops import flood, gostep
+
+    stones, sides, actions = positions(19, 4, 25, seed + 11, dev)
+    b = stones.shape[0]
+    out_s = torch.empty_like(stones)
+    out_i = torch.empty((b, 362), dtype=torch.bool, device=dev)
+    flag = ops.errors.error_word(dev)
+    got = gostep.step_legal(stones, sides, actions)
+    exp = gostep.step_legal_plain(stones, sides, actions)
+    check(torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1]),
+          "gostep differs from plain at 100 leaves of 19x19")
+    ms = graph_ms(lambda: gostep._launch(stones, sides, actions, out_s, out_i,
+                                         flag), 200)
+    nbytes = (stones.numel() + sides.numel() + 4 * actions.numel()
+              + out_s.numel() + out_i.numel())
+    row_gostep.update(ms_19x19_b100=ms,
+                      bound_ms_19x19_b100=nbytes / HBM_BYTES_PER_S * 1e3)
+    log(f"gostep 19x19 B={b} (one full_19x19 round): device {ms:.5f} ms, "
+        f"bound {row_gostep['bound_ms_19x19_b100']:.6f} ms ({nbytes} bytes)")
+    for size in (9, 19):
+        st, sd, _ = positions(size, 2, 30, seed + 12, dev)
+        own, empty = st[:1] == sd[:1, None, None], st[:1] == 0
+        s, a = own & flood.dilate(empty), own
+        check(torch.equal(flood.flood_fixpoint(s, a), flood.flood_plain(s, a)),
+              f"flood differs from plain at one {size}x{size} board")
+        out = torch.empty_like(s)
+        fms = graph_ms(lambda: flood._launch(s, a, out, flag), 500)
+        row_flood[f"ms_{size}x{size}_b1"] = fms
+        row_flood[f"bound_ms_{size}x{size}_b1"] = \
+            3 * s.numel() / HBM_BYTES_PER_S * 1e3
+        log(f"flood {size}x{size} B=1: device {fms:.5f} ms, bound "
+            f"{row_flood[f'bound_ms_{size}x{size}_b1']:.8f} ms")
+    ops.check_kernel_errors(dev)
+
+
+def strength_gtp_game(card):
+    """The real entry point as a subprocess from model_291 at --preset
+    strength: a self-play game of up to STRENGTH_GENMOVES genmoves (both
+    colours, until two passes in a row or a resign), final_score and
+    quit.  Every command must be answered and the process must exit 0.
+    The first genmove also builds the kernels in that process."""
+    import os
+    import tempfile
+
+    from sejonggo_torch.goenv import gtp_to_xy
+
+    cmd = [sys.executable, "-m", "sejonggo_torch.io.gtp", "--preset",
+           "strength", "--model-dir", MODELS, "--checkpoint", "model_291"]
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=err, text=True, bufsize=1,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+
+    def ask(line):
+        proc.stdin.write(line + "\n")
+        proc.stdin.flush()
+        lines = []
+        while True:
+            out = proc.stdout.readline()
+            if out == "":
+                err.seek(0)
+                raise SmokeFailure(f"the GTP process closed its output after "
+                                   f"{line!r}:\n{err.read()[-3000:]}")
+            if out == "\n":
+                if lines:
+                    return "".join(lines) + "\n"
+                continue
+            lines.append(out)
+
+    try:
+        for line in ("protocol_version", "boardsize 9", "komi 5.5",
+                     "clear_board"):
+            gtp_ok(ask(line))
+        secs, moves, passes = [], [], 0
+        for i in range(STRENGTH_GENMOVES):
+            color = "BW"[i % 2]
+            t = time.perf_counter()
+            vertex = gtp_ok(ask(f"genmove {color}"))
+            secs.append(time.perf_counter() - t)
+            moves.append(vertex)
+            if vertex == "resign":
+                break
+            x, y = gtp_to_xy(vertex, 9)
+            check(0 <= x < 9 and 0 <= y <= 9, f"genmove gave {vertex!r}")
+            passes = passes + 1 if vertex == "pass" else 0
+            if passes == 2:
+                break
+        board = gtp_ok(ask("showboard"))
+        score = gtp_ok(ask("final_score"))
+        check(score == "0" or score[:2] in ("B+", "W+"),
+              f"final_score gave {score!r}")
+        gtp_ok(ask("quit"))
+        code = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+    check(code == 0, f"the GTP process exited {code}")
+    check(len(board.splitlines()) == 9, "showboard is not a 9x9 board")
+    rest = secs[1:] or secs
+    ms = 1e3 * sum(rest) / len(rest)
+    log(f"gtp strength from model_291 (python -m sejonggo_torch.io.gtp): "
+        f"{len(moves)} genmoves ({' '.join(moves)}), final_score {score}, "
+        f"exit 0; first genmove {secs[0]:.2f} s (the process builds the "
+        f"kernels), then {ms:.1f} ms per genmove (round trip) on {card}")
+    return dict(genmoves=len(moves), ms_per_genmove=ms, score=score)
+
+
+def phase_gtp(seed, dev, card, gostep_row, flood_row):
+    """GTP at full full_19x19 width (20 x 256, 1600 simulations in 16
+    rounds of 100 leaves, 3302 tree slots, weights seeded from --seed)
+    through GTPFrontend.parse_command: alternate genmove (black) and play
+    (white replies with the most visited move of the kept tree) for
+    GTP_MOVES moves, then sg_showtree, showboard and final_score.  Every
+    response well-formed, sg_showtree consistent, the kept tree reused,
+    launches 16 gostep a genmove, 4 flood a move and 2 a score.  Then one
+    genmove kernels vs plain on the card, the session replayed through
+    the plain engine on the CPU, and the strength game from model_291
+    through the command line."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch import ops
+    from sejonggo_torch.config import full_19x19
+    from sejonggo_torch.goenv import engine, gtp_to_xy, xy_to_gtp
+    from sejonggo_torch.io.gtp import GoEngine, GTPFrontend
+    from sejonggo_torch.search import tree_debug
+
+    cfg = full_19x19()
+    check((cfg.net.blocks, cfg.net.filters, cfg.search.simulations,
+           cfg.search.batch_size, cfg.search.capacity()) ==
+          (20, 256, 1600, 100, 3302), "full_19x19 moved")
+    rounds = cfg.search.rounds
+    predict, draw_s = full_net(seed, dev)
+    rng = np.random.RandomState(seed)
+    eng = GoEngine(predict, size=19, komi=cfg.go.komi, search=cfg.search,
+                   seed=seed, device=dev)
+    gtp = GTPFrontend(eng)
+    for line in ("boardsize 19", "komi 7.5", "clear_board"):
+        gtp_ok(gtp.parse_command(line))
+    played, boards, genmove_ms, kept = [], [], [], 0
+    ops.reset_kernel_launches()
+    torch.cuda.synchronize()
+    for i in range(GTP_MOVES):
+        if i % 2 == 0:
+            kept += int(eng.tree_valid)
+            legal = engine.legal_moves_mask(eng.board).cpu()
+            t = time.perf_counter()
+            vertex = gtp_ok(gtp.parse_command("genmove B"))
+            torch.cuda.synchronize()
+            genmove_ms.append(1e3 * (time.perf_counter() - t))
+            check(vertex != "resign", "the engine resigned (resign is off)")
+            x, y = gtp_to_xy(vertex, 19)
+            check(bool(legal[19 * 19 if y == 19 else y * 19 + x]),
+                  f"genmove gave the illegal {vertex}")
+            check(eng.tree_valid and int(eng.tree.root_N[0]) > 0,
+                  "the kept tree was dropped after the engine's own move")
+            played.append((1, x, y))
+        else:
+            # the most visited reply of the kept tree (a legal random
+            # point if the tree has no visits there)
+            counts = eng.tree.child_N[0, 0].cpu()
+            legal = engine.legal_moves_mask(eng.board).cpu()
+            a = int(counts.argmax()) if int(counts.max()) > 0 else \
+                int(rng.choice(np.nonzero(legal[:361].numpy())[0]))
+            x, y = (a % 19, a // 19) if a < 361 else (0, 19)
+            gtp_ok(gtp.parse_command(f"play W {xy_to_gtp(x, y, 19)}"))
+            played.append((-1, x, y))
+        boards.append(eng.board.cpu())
+    tree = gtp_ok(gtp.parse_command("sg_showtree 2 3"))
+    check("root: N=" in tree and "pv:" in tree and "INCONSISTENT" not in tree,
+          f"sg_showtree: {tree[:300]!r}")
+    shown = gtp_ok(gtp.parse_command("showboard"))
+    check(len(shown.splitlines()) == 19, "showboard is not a 19x19 board")
+    score = gtp_ok(gtp.parse_command("final_score"))
+    check(score == "0" or score[:2] in ("B+", "W+"), f"final_score {score!r}")
+    torch.cuda.synchronize()
+    counts = ops.kernel_launches()
+    ops.check_kernel_errors(dev)
+    n_gen = len(genmove_ms)
+    want = {"gostep": rounds * n_gen, "flood": 4 * GTP_MOVES + 2}
+    check(counts == want, f"gtp launches {counts}, expected {want}")
+    check(kept >= 1, f"none of {n_gen} genmoves started from a kept tree")
+    problems = tree_debug.check_consistency(tree_debug.extract_tree(eng.tree, 0))
+    check(not problems, f"tree inconsistent: {problems[:3]}")
+    log(f"gtp full_19x19 ({cfg.net.blocks}x{cfg.net.filters} "
+        f"{cfg.net.compute_dtype}, {cfg.search.simulations} sims, "
+        f"k={cfg.search.batch_size}, {cfg.search.capacity()} slots, weights "
+        f"drawn on the host in {draw_s:.2f} s): {GTP_MOVES} moves, "
+        f"genmove ms {', '.join(f'{m:.1f}' for m in genmove_ms)} (the first "
+        f"builds the tree), {kept} of {n_gen} genmoves on a kept tree, "
+        f"final_score {score}, launches {counts} on {card}")
+    # the session through the plain engine on the CPU
+    board = engine.init_board(19, device="cpu")
+    for (player, x, y), want_b in zip(played, boards):
+        board, _ = engine.play_at(board, x, y, player)
+        check(torch.equal(board, want_b), "the replayed session differs")
+    torch.backends.cudnn.deterministic = True
+    cmp_ms = kernel_vs_plain_genmove(predict, eng.board, dev, seed)
+    torch.backends.cudnn.deterministic = False
+    new_shape_times(seed, dev, gostep_row, flood_row)
+    strength = strength_gtp_game(card)
+    return counts, dict(moves=GTP_MOVES, genmoves=n_gen,
+                        genmove_ms=float(np.mean(genmove_ms[1:])),
+                        first_genmove_ms=genmove_ms[0], plain_ms=cmp_ms,
+                        strength=strength)
+
+
+def phase_kgs(seed, dev, card):
+    """KGS pretraining at full full_19x19 width in a temporary workdir:
+    Pipeline(full_19x19(), workdir, seed, device="cuda"), init_models, then
+    kgs_pretrain_phase on the committed corpus for KGS_STEPS steps at the
+    preset's batch of 32 with a backup every KGS_BACKUP steps.  model_2,
+    backup and the metrics event are written, model_2 reads back
+    bit-equal to the trained state, the loss is finite, the replay's
+    floods are 4 a replayed move and gostep never runs.  Then one corpus
+    game replayed on the card and on the CPU (equal samples, 4 floods a
+    move) and the train step timed on one batch."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sejonggo_torch import ops
+    from sejonggo_torch.config import full_19x19
+    from sejonggo_torch.io import kgs
+    from sejonggo_torch.io.sgf import parse_sgf
+    from sejonggo_torch.learn import restore
+    from sejonggo_torch.learn.checkpoint import state_tree
+    from sejonggo_torch.pipeline import Pipeline
+
+    cfg = full_19x19()
+    check(cfg.train.batch_size == 32, "full_19x19's batch moved")
+    replayed = {"moves": 0, "secs": 0.0}
+    real_replay = kgs.replay_sgf
+
+    def counted_replay(text, size, device=None):
+        t = time.perf_counter()
+        out = real_replay(text, size, device)
+        replayed["secs"] += time.perf_counter() - t
+        p = parse_sgf(text)
+        if p["size"] == size:
+            replayed["moves"] += (len(p["moves"]) + len(p["setup_black"])
+                                  + len(p["setup_white"]))
+        return out
+
+    workdir = tempfile.mkdtemp(prefix="sejonggo_kgs_")
+    try:
+        pipe = Pipeline(cfg, workdir, seed, device=dev)
+        t = time.perf_counter()
+        pipe.init_models()
+        init_s = time.perf_counter() - t
+        saved = {}
+        real_save = pipe.store.save_state
+
+        def save_state(name, state):
+            saved[name] = state_tree(state)
+            real_save(name, state)
+
+        pipe.store.save_state = save_state
+        kgs.replay_sgf = counted_replay
+        ops.reset_kernel_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = pipe.kgs_pretrain_phase(CORPUS, steps=KGS_STEPS,
+                                        backup_every=KGS_BACKUP)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = ops.kernel_launches()
+        ops.check_kernel_errors(dev)
+        kgs.replay_sgf = real_replay
+        models = os.path.join(workdir, cfg.model_dir)
+        check(stats["steps"] == KGS_STEPS and stats["to"] == "model_2",
+              f"kgs_pretrain stats {stats}")
+        check(sorted(os.listdir(models)) == ["backup.msgpack", "index.json",
+                                             "model_1.msgpack",
+                                             "model_2.msgpack"],
+              f"model dir holds {sorted(os.listdir(models))}")
+        check(np.isfinite(stats["loss"]), f"loss {stats['loss']}")
+        written = restore(os.path.join(models, "model_2.msgpack"))
+        check(same_tree(written, saved["model_2"]),
+              "model_2.msgpack differs from the trained state")
+        check(int(written["step"]) == KGS_STEPS, f"model_2 step "
+              f"{int(written['step'])}")
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            events = [json.loads(line)["event"] for line in f]
+        check(events == ["kgs_pretrain"], f"metric events {events}")
+        check(counts == {"gostep": 0, "flood": 4 * replayed["moves"]},
+              f"kgs launches {counts} for {replayed['moves']} replayed moves")
+        # one game on the card and on the CPU
+        text = open(os.path.join(CORPUS, "rollout_00_005.sgf")).read()
+        ops.reset_kernel_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        on_card = kgs.replay_sgf(text, 19, dev)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t
+        game_counts = ops.kernel_launches()
+        on_cpu = kgs.replay_sgf(text, 19, "cpu")
+        check(len(on_card) == len(on_cpu) == len(parse_sgf(text)["moves"]),
+              "replayed sample counts differ")
+        for a, b in zip(on_card, on_cpu):
+            check(all(np.array_equal(a[k], b[k])
+                      for k in ("board", "policy", "value")),
+                  "a replayed sample differs between the card and the CPU")
+        check(game_counts == {"gostep": 0, "flood": 4 * len(on_cpu)},
+              f"replay launches {game_counts} for {len(on_cpu)} moves")
+        # the train step alone on one batch of the corpus
+        boards, policies, values = next(kgs.kgs_sample_stream(
+            CORPUS, 19, batch_size=32, device=dev))
+        state = pipe.load("model_2")
+        batch = [pipe._batch(x) for x in (boards, policies, values)]
+        state, _ = pipe.train_step(state, *batch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(KGS_TIMED_STEPS):
+            state, m = pipe.train_step(state, *batch)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t) / KGS_TIMED_STEPS
+        check(float(m["nonfinite"]) == 0.0, "timed train step non-finite")
+    finally:
+        kgs.replay_sgf = real_replay
+        shutil.rmtree(workdir, ignore_errors=True)
+    flops = 3 * forward_flops(cfg.net, size=19) * 32
+    tflops = flops / (step_ms * 1e-3) / 1e12
+    phase_ms = 1e3 * stats["seconds"] / KGS_STEPS
+    log(f"kgs full_19x19 pretrain on {card}: model_1 made in {init_s:.2f} s; "
+        f"{KGS_STEPS} steps at batch 32 in {stats['seconds']:.2f} s = "
+        f"{phase_ms:.1f} ms per step with the replay and the backups "
+        f"({32 * KGS_STEPS / stats['seconds']:.1f} samples/s); "
+        f"{replayed['moves']} moves replayed in {replayed['secs']:.2f} s = "
+        f"{replayed['moves'] / max(replayed['secs'], 1e-9):.1f} moves/s; "
+        f"loss {stats['loss']:.4f}; launches {counts}; {secs:.2f} s in all")
+    log(f"kgs train step alone: {step_ms:.2f} ms at batch 32, "
+        f"{32e3 / step_ms:.1f} samples/s, {flops / 1e9:.1f} GFLOP a step from "
+        f"the shapes = {tflops:.2f} TFLOP/s, {100 * tflops / 989:.2f}% of the "
+        f"989 TFLOP/s bf16 peak; one corpus game ({len(on_cpu)} moves) "
+        f"replayed on the card in {replay_s:.3f} s = "
+        f"{len(on_cpu) / replay_s:.1f} moves/s, equal to the CPU's, "
+        f"launches {game_counts}")
+    return counts, dict(step_ms=step_ms, phase_ms=phase_ms, tflops=tflops,
+                        replayed_moves=replayed["moves"],
+                        replay_moves_per_s=len(on_cpu) / replay_s)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -998,6 +1455,17 @@ def main() -> int:
     t = time.perf_counter()
     gen_counts, gen = phase_generation(dev, args.seed, card)
     log(f"phase 10 generation: ok in {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    gtp_counts, gtp = phase_gtp(args.seed, dev, card, gostep_row, flood_row)
+    log(f"phase 11 gtp: ok in {time.perf_counter() - t:.2f} s; "
+        f"{gtp['genmove_ms']:.1f} ms per kept-tree genmove at full_19x19, "
+        f"{gtp['strength']['ms_per_genmove']:.1f} ms per genmove at strength "
+        f"from model_291 on {card}")
+    t = time.perf_counter()
+    kgs_counts, kgs = phase_kgs(args.seed, dev, card)
+    log(f"phase 12 kgs: ok in {time.perf_counter() - t:.2f} s; "
+        f"{kgs['step_ms']:.2f} ms per train step at batch 32, full_19x19, "
+        f"on {card}")
 
     for row in (gostep_row, flood_row):
         name = row["name"]
@@ -1007,7 +1475,11 @@ def main() -> int:
                    launches_gate=gate_counts[name], gate_moves=gate["moves"],
                    launches_generation=gen_counts[name],
                    generation_selfplay_steps=gen["selfplay_steps"],
-                   generation_gate_moves=gen["gate_moves"])
+                   generation_gate_moves=gen["gate_moves"],
+                   launches_gtp=gtp_counts[name], gtp_moves=gtp["moves"],
+                   gtp_genmoves=gtp["genmoves"],
+                   launches_kgs=kgs_counts[name],
+                   kgs_replayed_moves=kgs["replayed_moves"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -1,6 +1,6 @@
 """Typed configuration (a copy of the parts of sejonggo_tpu/config.py the
 port uses: GoConfig, NetConfig, SearchConfig, SelfPlayConfig, TrainConfig,
-EvalConfig, Config and the 9x9 presets).
+EvalConfig, Config, the 9x9 presets and full_19x19).
 
 Kept as its own copy so the port never imports the JAX package.
 """
@@ -191,4 +191,12 @@ def strength_9x9_xl(**overrides) -> Config:
             resignation_cap=-0.90, game_batch=384),
         train=dataclasses.replace(base.train, lr=1e-2),
     )
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def full_19x19(**overrides) -> Config:
+    """Full-scale 19x19 config matching the reference's deployment
+    (sejonggo_tpu.config.full_19x19): Config() as it stands, 20 blocks x
+    256 filters, 1600 simulations in rounds of 100 leaves."""
+    cfg = Config()
     return dataclasses.replace(cfg, **overrides) if overrides else cfg

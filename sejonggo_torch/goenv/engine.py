@@ -16,6 +16,10 @@ Dispatch is by device, not by a global switch: ``step_batch`` and
 ``step_and_illegal_stones_batch``
 goes through ``ops.gostep.step_legal``; both launch the CUDA kernels for
 CUDA tensors and run their plain versions for CPU tensors.
+
+The single-board API at the end (``play_at``, ``score``, ``show_board``
+and the rest) is what GTP, SGF replay and the tests use: one (N, N, 17)
+board on its own device, routed through the batched functions at B=1.
 """
 from __future__ import annotations
 
@@ -222,3 +226,111 @@ def score_batch(boards: torch.Tensor, komi: float):
     w = torch.where(black_pts > white_pts, 1,
                     torch.where(black_pts == white_pts, 0, -1))
     return w.to(torch.int32), black_pts, white_pts
+
+
+# ---------------------------------------------------------------------------
+# single-board API: one (N, N, 17) board, through the batched functions
+# at B=1 (so a CUDA board floods through the kernel)
+
+
+def current_player(board: torch.Tensor) -> torch.Tensor:
+    """Side to move, +1/-1, as a 0-d int32 tensor."""
+    return board[0, 0, 16].to(torch.int32)
+
+
+def real_board(board: torch.Tensor) -> torch.Tensor:
+    """(N, N) int32 signed board, black (the first mover) = +1
+    (reference get_real_board play.py:106-112)."""
+    return signed_stones(board).to(torch.int32)
+
+
+def _swap_sides(board: torch.Tensor) -> torch.Tensor:
+    """Swap the current/other planes and flip the side to move
+    (play.py:219-224)."""
+    return torch.cat([board[..., list(SWAP_INDEX)], -board[..., 16:17]],
+                     dim=-1)
+
+
+def illegal_moves_mask(board: torch.Tensor) -> torch.Tensor:
+    """(N*N+1,) bool, True = illegal; pass (the last entry) is legal."""
+    return illegal_moves_mask_batch(board[None])[0]
+
+
+def legal_moves_mask(board: torch.Tensor) -> torch.Tensor:
+    """(N*N+1,) bool, True = legal."""
+    return ~illegal_moves_mask(board)
+
+
+def step(board: torch.Tensor, action: int) -> torch.Tensor:
+    """Apply a move for the side to move; action in [0, N*N], N*N = pass.
+    No legality check, as in the JAX package."""
+    actions = torch.tensor([action], dtype=torch.int32, device=board.device)
+    return step_batch(board[None], actions)[0]
+
+
+def play_at(board: torch.Tensor, x: int, y: int, color=None):
+    """Reference make_play(x, y, board, color): y == size is a pass.  If
+    ``color`` is given and is not the side to move, the sides are swapped
+    first (GTP and the tests force consecutive moves of one colour,
+    play.py:226-229).  Returns (new_board, player who moved)."""
+    n = board.shape[-3]
+    if color is not None and int(board[0, 0, 16]) != color:
+        board = _swap_sides(board)
+    player = int(board[0, 0, 16])
+    action = n * n if y >= n else y * n + x
+    return step(board, action), player
+
+
+def score(board: torch.Tensor, komi: float):
+    """Area score of one board: (winner 0-d int32 in {+1, 0, -1}, black
+    points, white points with komi), as ``score_batch``."""
+    w, b, wh = score_batch(board[None], komi)
+    return w[0], b[0], wh[0]
+
+
+def winner(board: torch.Tensor, komi: float) -> torch.Tensor:
+    return score(board, komi)[0]
+
+
+def color_board(real: torch.Tensor, color: int) -> torch.Tensor:
+    """Empty points connected to ``color`` stones become ``color``
+    (reference color_board/_color_adjoint play.py:244-271), on an (N, N)
+    signed board; int32."""
+    real = torch.as_tensor(real).to(torch.int32)
+    stones = real == color
+    empty = real == 0
+    reach = flood_fixpoint((empty & _dilate(stones))[None], empty[None])[0]
+    return torch.where(reach, color, real)
+
+
+def area_counts(real: torch.Tensor) -> torch.Tensor:
+    """color_board(real, 1) + color_board(real, -1) (reference
+    _get_points play.py:286-292): black stones 2, white stones -2,
+    black-only territory 1, white-only -1, dame 0."""
+    return color_board(real, 1) + color_board(real, -1)
+
+
+def group_liberty_count(board: torch.Tensor, x: int, y: int,
+                        color: int) -> torch.Tensor:
+    """Distinct liberties of the ``color`` group connected to (x, y),
+    excluding the seed point itself (reference get_liberties
+    play.py:57-69, clean semantics as in the JAX package)."""
+    n = board.shape[-3]
+    real = real_board(board)
+    iota = torch.arange(n, device=board.device)
+    seed = (iota[:, None] == y) & (iota[None, :] == x)
+    stones = real == color
+    group = seed | flood_fixpoint((stones & _dilate(seed))[None],
+                                  stones[None])[0]
+    libs = (real == 0) & _dilate(group) & ~seed
+    return libs.sum()
+
+
+def show_board(board: torch.Tensor) -> str:
+    """ASCII rendering (reference _show_board play.py:114-133 style):
+    black ○, white ●, empty ."""
+    out = []
+    for brow in real_board(board).cpu().tolist():
+        out.append(" ".join("○" if c == 1 else "●" if c == -1 else "."
+                            for c in brow))
+    return "\n".join(out)

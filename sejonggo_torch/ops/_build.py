@@ -13,6 +13,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import sys
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,9 +59,11 @@ def _build() -> str:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{log}")
     build_info.update(command=" ".join(cmd), seconds=seconds, log=log)
-    print(f"[sejonggo_torch] built {out} in {seconds:.2f} s", flush=True)
+    # stderr: a GTP engine's stdout carries only protocol responses
+    print(f"[sejonggo_torch] built {out} in {seconds:.2f} s", file=sys.stderr,
+          flush=True)
     for line in log.splitlines():
-        print(f"[nvcc] {line}", flush=True)
+        print(f"[nvcc] {line}", file=sys.stderr, flush=True)
     return out
 
 

@@ -11,9 +11,10 @@ model, training updates a fresh net loaded from the latest, the gate
 plays latest against best, so play nets (eval mode) and the train net
 are separate modules.  Where the JAX loop splits a ``jax.random`` key, the
 port draws from one CPU ``torch.Generator`` seeded from ``seed``; its
-state is part of the run state.  Not ported yet: the KGS pretraining
-phase and the SGF/HDF5 game archives (they need ``io/``) and the
-multi-device and multi-host layouts.
+state is part of the run state.  The KGS pretraining phase replays SGF
+games on the pipeline's device; self-play games can be archived as SGF
+and/or the reference's HDF5 samples.  Not ported yet: the multi-device
+and multi-host layouts.
 
     python -m sejonggo_torch.pipeline --preset tiny --device cpu
 """
@@ -23,6 +24,8 @@ import argparse
 import json
 import logging
 import os
+import re
+import shutil
 import time
 from typing import Optional
 
@@ -31,7 +34,8 @@ import torch
 
 from sejonggo_torch._device import resolve_device
 from sejonggo_torch.actor import ContinuousSelfPlay, ResignCalibrator
-from sejonggo_torch.config import Config, small_9x9, strength_9x9
+from sejonggo_torch.config import (Config, full_19x19, small_9x9,
+                                   strength_9x9)
 from sejonggo_torch.learn import (CheckpointStore, PlateauScheduler,
                                   ReplayBuffer, evaluate_models, game_samples,
                                   init_train_state, load_segment,
@@ -75,6 +79,13 @@ class Pipeline:
         # reference NoModelEvaluateWorker reuses eval games as training
         # data (evaluate_worker.py:151)
         self.eval_games_to_replay = True
+        # reference always archives self-play games (sgfsave.py:49-79);
+        # here opt-in: the replay buffer is the primary store
+        self.archive_selfplay = False
+        # 'sgf', 'h5' (reference game_%05d/move_%03d/sample.h5 layout),
+        # or 'both'
+        self.archive_format = "sgf"
+        self._archive_counts = {}  # per-model archived-game counters
         # split-role selfplay->train data path (reference scp push per
         # game, selfplay_worker.py:123-124): selfplay role publishes one
         # replay segment per phase here; train role ingests new ones
@@ -138,6 +149,9 @@ class Pipeline:
             device=self.device)
 
         moves = 0
+        # archive game index continues across phases of the same model
+        # (the reference numbers game dirs monotonically per model dir)
+        archived = self._archive_counts.get(best, 0)
         resigned_games = 0
         holdout_games = 0
         holdout_winner_dips = 0
@@ -145,7 +159,7 @@ class Pipeline:
         log_every = max(1, n // 16)
 
         def on_game(game):
-            nonlocal moves, resigned_games, holdout_games
+            nonlocal moves, archived, resigned_games, holdout_games
             nonlocal holdout_winner_dips, games_done
             # online check of the calibration property (reference
             # ALLOWED_ERROR=5%, self_play.py:319-330): on each HOLDOUT
@@ -167,6 +181,9 @@ class Pipeline:
             moves += self.replay.add_game(game)
             if self._segment_games is not None:
                 self._segment_games.append(game_samples(game))
+            if self.archive_selfplay:
+                self._archive_game(game, best, archived)
+                archived += 1
             games_done += 1
             if games_done % log_every == 0 or games_done == n:
                 logger.info(
@@ -174,6 +191,11 @@ class Pipeline:
                     games_done, n, moves, time.time() - t0)
 
         actor.run(n, on_game=on_game)
+        self._archive_counts[best] = archived
+        if self.archive_selfplay:
+            # reference sweeps empty/short games and prunes beyond the
+            # replay window after each self-play pass
+            self.clean_archives()
         dt = time.time() - t0
         sims = moves * cfg.search.simulations
         stats = {
@@ -193,6 +215,119 @@ class Pipeline:
         }
         logger.info("selfplay: %s", stats)
         return dict(self.metrics.log("selfplay", phase="selfplay", **stats))
+
+    def _archive_game(self, game: dict, model_name: str, game_n: int) -> None:
+        """Reference-compatible archival of one finished game: SGF with
+        per-move value comments (sgfsave.py:130-167 layout) and/or the
+        reference's per-move HDF5 training-sample tree
+        game_%05d/move_%03d/sample.h5 (sgfsave.py:49-79), so reference
+        tooling can consume this build's games."""
+        from sejonggo_torch.io.sgf import divmod_xy, game_to_sgf
+
+        size = self.cfg.go.size
+        if self.archive_format in ("h5", "both"):
+            from sejonggo_torch.io.h5data import save_move_sample
+
+            boards, policies, values = game_samples(game)
+            base = os.path.join(self.workdir, self.cfg.selfplay_dir,
+                                model_name, f"game_{game_n:05d}")
+            for m in range(boards.shape[0]):
+                save_move_sample(os.path.join(base, f"move_{m:03d}"),
+                                 boards[m], policies[m], values[m])
+        if self.archive_format not in ("sgf", "both"):
+            return
+        moves = [(int(p), *divmod_xy(int(a), size))
+                 for p, a in zip(game["players"], game["actions"])]
+        w = int(game["resign_winner"])
+        if w == 0:
+            result = "0"
+        elif game["resigned"]:
+            result = ("B" if w == 1 else "W") + "+R"
+        else:
+            margin = abs(game["black_points"] - game["white_points"])
+            result = ("B" if w == 1 else "W") + f"+{margin}"
+        d = os.path.join(self.workdir, self.cfg.selfplay_dir, model_name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, f"game_{game_n:05d}.sgf"), "w") as f:
+            f.write(game_to_sgf(size, self.cfg.go.komi, moves, result,
+                                values=list(map(float, game["values"]))))
+
+    # --- archive maintenance (reference sgfsave.py:83-128 cleanup +
+    # statistics, data_generator.py:36-40 window pruning,
+    # utils.py:147-160 empty-dir sweep) --------------------------------
+
+    def clean_archives(self, min_moves: int = 2) -> dict:
+        """Sweep degenerate archived games and prune the archive to the
+        replay window.
+
+        - h5 game dirs with fewer than `min_moves` move dirs, and empty
+          dirs, are deleted (reference clean_up_empty utils.py:147-160,
+          sgfsave.py:83-96; zero-move game removal
+          selfplay_worker.py:115-118);
+        - the oldest archived games beyond cfg.train.replay_window are
+          deleted, walking model generations oldest-first (reference
+          clean_unused_self_play_data data_generator.py:36-40 via the
+          N_MOST_RECENT_GAMES window of get_training_desc).
+        Returns sweep statistics (the reference's statistics(),
+        sgfsave.py:98-128, folded in as counts).
+        """
+        base = os.path.join(self.workdir, self.cfg.selfplay_dir)
+        stats = {"models": 0, "games": 0, "moves": 0,
+                 "swept_short": 0, "pruned_window": 0}
+        if not os.path.isdir(base):
+            return stats
+
+        def model_key(name):
+            m = re.search(r"(\d+)$", name)
+            return int(m.group(1)) if m else -1
+
+        models = sorted((d for d in os.listdir(base)
+                         if os.path.isdir(os.path.join(base, d))),
+                        key=model_key)
+        per_game = []  # (model_idx, path, moves) oldest first
+        for mi, model in enumerate(models):
+            mdir = os.path.join(base, model)
+            for entry in sorted(os.listdir(mdir)):
+                path = os.path.join(mdir, entry)
+                if entry.endswith(".sgf"):
+                    with open(path, errors="replace") as f:
+                        n_moves = f.read().count(";") - 1
+                    if n_moves < min_moves:
+                        os.remove(path)
+                        stats["swept_short"] += 1
+                        continue
+                    per_game.append((mi, path, n_moves))
+                elif os.path.isdir(path) and entry.startswith("game_"):
+                    n_moves = sum(1 for p in os.listdir(path)
+                                  if p.startswith("move_"))
+                    if n_moves < min_moves:
+                        shutil.rmtree(path)
+                        stats["swept_short"] += 1
+                        continue
+                    per_game.append((mi, path, n_moves))
+        total_moves = sum(m for _, _, m in per_game)
+        # prune oldest games until the archived MOVE count fits the
+        # replay window (the window is a sample count, learn/replay.py)
+        window = self.cfg.train.replay_window
+        i = 0
+        while total_moves > window and i < len(per_game):
+            _, path, m = per_game[i]
+            (shutil.rmtree if os.path.isdir(path) else os.remove)(path)
+            total_moves -= m
+            stats["pruned_window"] += 1
+            i += 1
+        kept = per_game[i:]
+        stats["games"] = len(kept)
+        stats["moves"] = total_moves
+        # drop model dirs emptied by the sweep
+        for model in models:
+            mdir = os.path.join(base, model)
+            if os.path.isdir(mdir) and not os.listdir(mdir):
+                os.rmdir(mdir)
+            elif os.path.isdir(mdir):
+                stats["models"] += 1
+        logger.info("archive sweep: %s", stats)
+        return stats
 
     # --- split-role selfplay->train data path (reference pushes every
     # finished game to the training server over scp as it completes,
@@ -309,6 +444,55 @@ class Pipeline:
             if new_lr is not None:
                 self.set_lr(new_lr)
         return stats
+
+    def kgs_pretrain_phase(self, data_dir: str, steps: int,
+                           backup_every: int = 0) -> dict:
+        """Supervised pretraining from KGS SGFs (reference
+        main_training.py:34-98 continuous trainer + KGSDataGenerator).
+        Trains the latest model in place and saves model_<N+1>;
+        `backup_every` steps writes a crash-recovery 'backup' checkpoint
+        (reference EPOCHS_PER_BACKUP / save_backup_model).  The games are
+        replayed on the pipeline's device, shuffled by
+        ``RandomState(0)`` as the JAX package's single process does."""
+        from sejonggo_torch.io.kgs import kgs_sample_stream
+
+        cfg = self.cfg
+        latest = self.store.latest_name()
+        state = self.load(latest)
+        stream = kgs_sample_stream(
+            data_dir, cfg.go.size, batch_size=cfg.train.batch_size,
+            rng=np.random.RandomState(0), loop=True, device=self.device)
+        t0 = time.time()
+        last_metrics = {}
+        done_steps = 0
+        try:
+            for boards, policies, values in stream:
+                state, metrics = self.train_step(
+                    state, self._batch(boards), self._batch(policies),
+                    self._batch(values))
+                last_metrics = metrics
+                done_steps += 1
+                if backup_every and done_steps % backup_every == 0:
+                    self.store.save_state("backup", state)
+                if done_steps >= steps:
+                    break
+        except BaseException:
+            # reference atexit crash-save (main_training.py:22-25,101)
+            self.store.save_state("exit_backup", state)
+            logger.exception("kgs pretrain aborted; state saved as "
+                             "'exit_backup'")
+            raise
+        name = self.store.next_name()
+        self.store.save_state(name, state)
+        dt = time.time() - t0
+        stats = {
+            "from": latest, "to": name,
+            "steps": done_steps, "seconds": dt,
+            **{k: float(v) for k, v in last_metrics.items()},
+        }
+        logger.info("kgs_pretrain: %s", stats)
+        return dict(self.metrics.log("kgs_pretrain", phase="kgs_pretrain",
+                                     **stats))
 
     def evaluate_phase(self) -> dict:
         """Latest vs best gating (reference evaluator.py:23-47)."""
@@ -443,13 +627,16 @@ def main(argv=None):
     from sejonggo_torch.utils.metrics import setup_logging
 
     parser = argparse.ArgumentParser(description="sejonggo_torch pipeline")
-    parser.add_argument("--preset", choices=["tiny", "strength"],
+    parser.add_argument("--preset", choices=["tiny", "strength", "full"],
                         default="tiny")
     parser.add_argument("--generations", type=int, default=1)
     parser.add_argument("--games", type=int, default=0,
                         help="self-play games per generation (0 = preset)")
     parser.add_argument("--workdir", default="runs/pipeline")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--archive-selfplay", action="store_true",
+                        help="also write self-play games as SGF "
+                        "(reference sgfsave.py behavior)")
     parser.add_argument("--role",
                         choices=["full", "selfplay", "train", "spe"],
                         default="full",
@@ -461,10 +648,12 @@ def main(argv=None):
                         "the CPU)")
     args = parser.parse_args(argv)
 
-    cfg = {"tiny": small_9x9, "strength": strength_9x9}[args.preset]()
+    cfg = {"tiny": small_9x9, "strength": strength_9x9,
+           "full": full_19x19}[args.preset]()
     os.makedirs(args.workdir, exist_ok=True)
     setup_logging(os.path.join(args.workdir, cfg.log_dir))
     pipe = Pipeline(cfg, args.workdir, seed=args.seed, device=args.device)
+    pipe.archive_selfplay = args.archive_selfplay
     if args.role == "selfplay":
         pipe.run_selfplay_role(args.generations, args.games)
     elif args.role == "train":

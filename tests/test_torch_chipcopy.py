@@ -1,18 +1,21 @@
 """The copy of the checkout that goes to the card machine.
 
 ``.chiprunignore`` keeps the JAX package's run artifacts under ``runs/``
-(~500 MB) out of the copy, all but the two files the smoke run reads:
-model_291 and the index beside it.  The copy does not honour "!"
+(~500 MB) out of the copy, all but the files the smoke run reads:
+model_291 and the index beside it, and the 48 rollout SGFs of the 19x19
+corpus (the KGS pretraining phase).  The copy does not honour "!"
 re-inclusion, so the file names every other entry of ``runs/``.  These
 tests fail when an entry of ``runs/`` is neither named there nor one of
-those two files, and when the copy would pass its 256 MiB limit."""
+those files, and when the copy would pass its 256 MiB limit."""
 import fnmatch
 import os
 import pathlib
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 REQUIRED = {"runs/strength_r5b/sp_models/model_291.msgpack",
-            "runs/strength_r5b/sp_models/index.json"}
+            "runs/strength_r5b/sp_models/index.json"} | {
+    f"runs/full19_r5/corpus/rollout_{r:02d}_{g:03d}.sgf"
+    for r in range(2) for g in range(24)}
 ALWAYS_LEFT_OUT = (".git", "chiprun_out")   # never copied
 LIMIT_BYTES = 256 * 2 ** 20
 

@@ -336,3 +336,68 @@ def test_model_291_reencodes_byte_equal_on_the_card_host(cuda, tmp_path):
     CheckpointStore(str(tmp_path)).save_state("model_291", state)
     assert (tmp_path / "model_291.msgpack").read_bytes() == \
         (MODELS / "model_291.msgpack").read_bytes()
+
+
+@pytest.mark.gpu
+def test_gtp_genmove_19x19_kernel_path_matches_plain_path(cuda):
+    """One full_19x19 search (1600 simulations in 16 rounds of 100
+    leaves, 3302 slots) through the GTP engine with the dummy net and
+    fixed symmetries: the card (both kernels) and the CPU (plain
+    versions) choose the same vertex with bit-equal trees; the card
+    launches gostep once a round and flood 4 times for the move."""
+    from sejonggo_torch.config import full_19x19
+    from sejonggo_torch.io.gtp import GoEngine
+
+    search = full_19x19().search
+    syms = [r % 7 for r in range(search.rounds)]
+    out = {}
+    for d in (cuda, "cpu"):
+        eng = GoEngine(dummy_predict_fn, size=19, komi=7.5, search=search,
+                       device=d, draws=lambda noise: {"syms": syms})
+        eng.play(1, 3, 3)
+        eng.play(-1, 15, 15)
+        ops.reset_kernel_launches()
+        x, y, _ = eng.genmove(1)
+        if d is cuda:
+            ops.check_kernel_errors(cuda)
+            assert ops.kernel_launches() == {"gostep": search.rounds,
+                                             "flood": 4}
+        out[d] = (x, y, eng)
+    (cx, cy, ce), (px, py, pe) = out[cuda], out["cpu"]
+    assert (cx, cy) == (px, py)
+    assert torch.equal(ce.board.cpu(), pe.board)
+    for name, t in ce.tree.fields().items():
+        assert torch.equal(t.cpu(), getattr(pe.tree, name)), name
+
+
+@pytest.mark.gpu
+def test_play_at_and_score_on_the_card_match_the_cpu(cuda):
+    """A 19x19 corpus game and a 9x9 game with passes and forced colours
+    through the single-board API at B=1: the card (the flood kernel, 4
+    launches a move and 2 a score) and the CPU give equal boards and
+    scores."""
+    from sejonggo_torch.goenv import engine
+    from sejonggo_torch.io.sgf import parse_sgf
+
+    corpus = MODELS.parents[2] / "runs/full19_r5/corpus/rollout_00_000.sgf"
+    games = [(19, [(p, x, y) for p, x, y in
+                   parse_sgf(corpus.read_text())["moves"]])]
+    rng = np.random.RandomState(0)
+    games.append((9, [(int(rng.choice([-1, 1])), int(rng.randint(9)),
+                       int(rng.choice([rng.randint(9), 9])))
+                      for _ in range(60)]))
+    for size, moves in games:
+        boards = {d: engine.init_board(size, device=d) for d in (cuda, "cpu")}
+        ops.reset_kernel_launches()
+        for player, x, y in moves:
+            for d in boards:
+                if engine.legal_moves_mask(boards[d])[
+                        size * size if y == size else y * size + x] or y == size:
+                    boards[d], _ = engine.play_at(boards[d], x, y, player)
+            assert torch.equal(boards[cuda].cpu(), boards["cpu"])
+        scores = {d: engine.score(b, 7.5) for d, b in boards.items()}
+        ops.check_kernel_errors(cuda)
+        played = ops.kernel_launches()["flood"]
+        assert played % 4 == 2 and played > 4 * len(moves) // 2
+        for a, b in zip(scores[cuda], scores["cpu"]):
+            assert torch.equal(a.cpu(), b)

@@ -1,5 +1,6 @@
 """The port stands alone: sejonggo_torch and chip_smoke.py import no JAX,
-flax, msgpack or sejonggo_tpu (the card's machine has none of them), the
+flax, msgpack or sejonggo_tpu, nor h5py at import time (the card's
+machine has none of them; io.h5data imports h5py when it is called), the
 CUDA sources include no PyTorch header (they build with plain nvcc), and
 chip_smoke.py refuses to run without a card or without the package."""
 import os
@@ -15,7 +16,7 @@ PKG = REPO / "sejonggo_torch"
 
 BLOCKER = r'''
 import importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "sejonggo_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "sejonggo_tpu", "h5py")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
