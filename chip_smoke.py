@@ -8,7 +8,9 @@ tree slots, a 4-block x 64-filter bf16 net with random weights made from
 checkpoint (6x96, bf16): continuous self-play, the gate, and one whole
 generation of the closed loop (self-play, train, checkpoint, gate); then
 the I/O entry points: GTP play at full_19x19 width and from model_291,
-and KGS pretraining of the full_19x19 net on the committed SGF corpus.  Holds each hand-written CUDA kernel against its
+and KGS pretraining of the full_19x19 net on the committed SGF corpus;
+then the model-free michi engine: its duel against model_291 and its
+GTP play.  Holds each hand-written CUDA kernel against its
 plain PyTorch version on the card.
 
     python3 chip_smoke.py [--seed 0]
@@ -44,7 +46,15 @@ game from model_291 through ``python -m sejonggo_torch.io.gtp``, 12 KGS
 pretraining of the 20 x 256 net on the committed 19x19 corpus in a
 temporary workdir (32 steps at batch 32; model_2 read back bit-equal,
 the backup and the metric event, 4 floods a replayed move, one game
-replayed on the card and on the CPU, the train step timed alone).
+replayed on the card and on the CPU, the train step timed alone), 13
+the model-free engines: one michi playout of 256 mid-game boards and one
+michi@64 search of 16 games, each through the kernels and through the
+plain versions on the card with the same draws (bit-equal), gostep timed
+at 256 and 16 boards, the 32-game duel of model_291 at strength_9x9_xl
+against michi@64 (launch counts, the games replayed through the plain
+engine, net wins inside a plausibility band), then three michi genmoves
+at 1400 simulations with the committed patterns through
+``python -m sejonggo_torch.io.gtp --engine michi``.
 The kernels' error word is read after every kernel phase.
 Every phase prints one line with its elapsed seconds; the line before
 the last is the kernel table as JSON, the last line is
@@ -77,6 +87,13 @@ GTP_MOVES = 9                 # phase 11: 5 genmoves and 4 replies, 19x19
 STRENGTH_GENMOVES = 40        # phase 11: the model_291 game over GTP
 CORPUS = "runs/full19_r5/corpus"          # 48 rollout SGFs, 19x19 (in git)
 KGS_STEPS, KGS_BACKUP, KGS_TIMED_STEPS = 32, 16, 8    # phase 12
+# phase 13: model_291 at strength_9x9_xl against michi@64 (the run of
+# runs/strength_r5b/michi64_confirm.log), michi over GTP at 1400 sims
+DUEL_GAMES, DUEL_SIMS = 32, 64
+DUEL_NET_WINS = (6, 26)       # a plausibility band, not a strength claim
+MICHI_GAMES, MICHI_BOARDS = 16, 256      # 16 games x k = 16 playouts
+MICHI_GTP_GENMOVES = 3
+PATTERNS = "runs/patterns_r5/patterns"   # .spat and .prob (in git)
 
 T0 = time.perf_counter()
 
@@ -945,19 +962,21 @@ def phase_generation(dev, seed, card):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The engine's floods and the search's leaf steps through the plain
-    PyTorch versions, on whatever device the tensors lie (the card here),
-    while the block runs."""
+    """The engine's and the heuristics' floods and every gostep call
+    through the plain PyTorch versions, on whatever device the tensors
+    lie (the card here), while the block runs."""
     from sejonggo_torch.goenv import engine
     from sejonggo_torch.ops import flood, gostep
+    from sejonggo_torch.search import heuristics
 
-    saved = engine.flood_fixpoint, gostep.step_legal
-    engine.flood_fixpoint, gostep.step_legal = (flood.flood_plain,
-                                                gostep.step_legal_plain)
+    saved = engine.flood_fixpoint, heuristics.flood_fixpoint, gostep.step_legal
+    engine.flood_fixpoint = heuristics.flood_fixpoint = flood.flood_plain
+    gostep.step_legal = gostep.step_legal_plain
     try:
         yield
     finally:
-        engine.flood_fixpoint, gostep.step_legal = saved
+        engine.flood_fixpoint, heuristics.flood_fixpoint, gostep.step_legal = \
+            saved
 
 
 def gtp_ok(resp: str) -> str:
@@ -1067,19 +1086,14 @@ def new_shape_times(seed, dev, row_gostep, row_flood):
     ops.check_kernel_errors(dev)
 
 
-def strength_gtp_game(card):
-    """The real entry point as a subprocess from model_291 at --preset
-    strength: a self-play game of up to STRENGTH_GENMOVES genmoves (both
-    colours, until two passes in a row or a resign), final_score and
-    quit.  Every command must be answered and the process must exit 0.
-    The first genmove also builds the kernels in that process."""
+def gtp_process(cmd):
+    """Start ``cmd`` (a GTP engine) with its stderr in a temporary file;
+    returns (process, ask, stderr file).  ask(line) sends one command and
+    returns its response; a closed output is a failure, with the end of
+    the engine's stderr."""
     import os
     import tempfile
 
-    from sejonggo_torch.goenv import gtp_to_xy
-
-    cmd = [sys.executable, "-m", "sejonggo_torch.io.gtp", "--preset",
-           "strength", "--model-dir", MODELS, "--checkpoint", "model_291"]
     err = tempfile.TemporaryFile(mode="w+")
     proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                             stderr=err, text=True, bufsize=1,
@@ -1101,6 +1115,20 @@ def strength_gtp_game(card):
                 continue
             lines.append(out)
 
+    return proc, ask, err
+
+
+def strength_gtp_game(card):
+    """The real entry point as a subprocess from model_291 at --preset
+    strength: a self-play game of up to STRENGTH_GENMOVES genmoves (both
+    colours, until two passes in a row or a resign), final_score and
+    quit.  Every command must be answered and the process must exit 0.
+    The first genmove also builds the kernels in that process."""
+    from sejonggo_torch.goenv import gtp_to_xy
+
+    proc, ask, err = gtp_process(
+        [sys.executable, "-m", "sejonggo_torch.io.gtp", "--preset",
+         "strength", "--model-dir", MODELS, "--checkpoint", "model_291"])
     try:
         for line in ("protocol_version", "boardsize 9", "komi 5.5",
                      "clear_board"):
@@ -1381,6 +1409,309 @@ def phase_kgs(seed, dev, card):
                         replay_moves_per_s=len(on_cpu) / replay_s)
 
 
+def midgame_boards(games, moves, seed, dev):
+    """(plane boards (games, 9, 9, 17), last moves (games,)) after
+    ``moves`` contact-biased random legal moves, played on ``dev``."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch.goenv import engine
+    from sejonggo_torch.goenv.positions import choose_actions
+
+    rng = np.random.RandomState(seed)
+    boards = engine.init_board(9, batch=games, device=dev)
+    act = torch.full((games,), -1, dtype=torch.int32)
+    for _ in range(moves):
+        illegal = engine.illegal_moves_mask_batch(boards).cpu().numpy()
+        occ = ((boards[..., 0] == 1) | (boards[..., 1] == 1)).cpu().numpy()
+        act = torch.as_tensor(choose_actions(rng, illegal, occ, 0.8, 0.0))
+        boards = engine.step_batch(boards, act.to(dev))
+    return boards, act.to(dev)
+
+
+def michi_launches(c, net_rounds=0):
+    """The gostep and flood launches the michi code implies from its
+    counts ``c`` (michi_search_batch's, prefixed ``michi_`` in a duel's):
+    a gostep per playout step, per ladder read batch and two per ladder
+    iteration; four floods per env step, two per score, one per ladder
+    iteration; and, in a duel, per net move ``net_rounds`` gosteps and
+    four floods, per michi move four floods, two for the final score."""
+    p = "michi_" if "michi_moves" in c else ""
+    li = c.get(p + "ladder_iters", 0)
+    gostep = (c[p + "playout_steps"] + c.get(p + "ladder_calls", 0) + 2 * li
+              + c.get("net_moves", 0) * net_rounds)
+    flood = (4 * c[p + "env_steps"] + 2 * c[p + "scores"] + li
+             + 4 * (c.get("net_moves", 0) + c.get("michi_moves", 0))
+             + (2 if p else 0))
+    return {"gostep": gostep, "flood": flood}
+
+
+def michi_kernels_vs_plain(seed, dev, card, gostep_row):
+    """One mc_playout_batch of MICHI_BOARDS mid-game boards and one whole
+    michi_search_batch of MICHI_GAMES games at DUEL_SIMS simulations,
+    each through the kernels and through the plain versions on the card
+    with the same draws: scores, AMAF rows, final grids and every tree
+    field bit-equal; the launches those counts imply.  Then gostep timed
+    by graph replay at the two batches the michi path gives it."""
+    import torch
+
+    from sejonggo_torch import ops
+    from sejonggo_torch.config import MichiConfig
+    from sejonggo_torch.ops import gostep
+    from sejonggo_torch.search import michi
+
+    cfg = MichiConfig(komi=5.5, n_sims=DUEL_SIMS)
+    check(cfg.playout_parallel * MICHI_GAMES == MICHI_BOARDS
+          and cfg.playout_cap(9) == 162, "MichiConfig moved")
+    boards, last = midgame_boards(MICHI_BOARDS, 24, seed + 30, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand((162, MICHI_BOARDS, 81), generator=g, device=dev)
+    draws = {"gates": torch.rand((162, MICHI_BOARDS, 5), generator=g,
+                                 device=dev),
+             "gumbel": -torch.log(-torch.log(u.clamp(min=1e-30)))}
+    amaf = torch.zeros((MICHI_BOARDS, 82), dtype=torch.int8, device=dev)
+    out, ms = {}, {}
+    for name in ("kernels", "plain"):
+        ops.reset_kernel_launches()
+        stats = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with plain_kernels() if name == "plain" else contextlib.nullcontext():
+            out[name] = michi.mc_playout_batch(
+                boards, amaf, cfg, last, draws=draws, stats=stats,
+                return_final=True)
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t)
+        if name == "kernels":
+            launches = ops.kernel_launches()
+            check(launches == {"gostep": stats["playout_steps"], "flood": 2},
+                  f"playout launches {launches}, counts {stats}")
+    same = all(torch.equal(a, b) for a, b in zip(out["kernels"], out["plain"]))
+    log(f"michi playout B={MICHI_BOARDS} 9x9 kernels vs plain (both on the "
+        f"card, same draws): scores, AMAF, final grids "
+        f"{'bit-equal' if same else 'DIFFERENT'}; {stats['playout_steps']} "
+        f"steps, {ms['kernels']:.1f} ms with the kernels, {ms['plain']:.1f} "
+        f"ms plain on {card}")
+    check(same, "the michi playout differs between the kernel and plain paths")
+    ops.check_kernel_errors(dev)
+
+    b16, l16 = boards[:MICHI_GAMES], last[:MICHI_GAMES]
+    trees, sms = {}, {}
+    for name in ("kernels", "plain"):
+        ops.reset_kernel_launches()
+        stats = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with plain_kernels() if name == "plain" else contextlib.nullcontext():
+            t0 = michi.new_michi_tree_batch(b16, cfg, l16, stats=stats)
+            tr, active = michi.michi_search_batch(
+                t0, cfg, generator=torch.Generator(device=dev).manual_seed(
+                    seed + 1), stats=stats)
+        torch.cuda.synchronize()
+        sms[name] = 1e3 * (time.perf_counter() - t)
+        trees[name] = (tr, active)
+        if name == "kernels":
+            launches, want = ops.kernel_launches(), michi_launches(stats)
+            check(launches == want, f"search launches {launches}, the counts "
+                  f"{stats} imply {want}")
+    (tk, ak), (tp, ap) = trees["kernels"], trees["plain"]
+    same = torch.equal(ak, ap) and all(
+        torch.equal(x, tp.fields()[k]) for k, x in tk.fields().items())
+    log(f"michi search {MICHI_GAMES} games x {DUEL_SIMS} sims (k="
+        f"{cfg.playout_parallel}, {cfg.node_capacity()} slots) kernels vs "
+        f"plain: trees {'bit-equal' if same else 'DIFFERENT'}; "
+        f"{int(tk.n_nodes.sum())} nodes, counts {stats}; "
+        f"{sms['kernels']:.1f} ms with the kernels, {sms['plain']:.1f} ms "
+        f"plain on {card}")
+    check(same, "the michi search differs between the kernel and plain paths")
+    ops.check_kernel_errors(dev)
+
+    flag = ops.errors.error_word(dev)
+    for b in (MICHI_BOARDS, MICHI_GAMES):
+        stones, sides, actions = positions(9, b // 8, 8, seed + 31, dev)
+        out_s = torch.empty_like(stones)
+        out_i = torch.empty((b, 82), dtype=torch.bool, device=dev)
+        gms = graph_ms(lambda: gostep._launch(stones, sides, actions, out_s,
+                                              out_i, flag), 500)
+        nbytes = (stones.numel() + sides.numel() + 4 * actions.numel()
+                  + out_s.numel() + out_i.numel())
+        gostep_row[f"ms_9x9_b{b}"] = gms
+        gostep_row[f"bound_ms_9x9_b{b}"] = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"gostep 9x9 B={b} (michi playout step): device {gms:.5f} ms, "
+            f"bound {gostep_row[f'bound_ms_9x9_b{b}']:.7f} ms ({nbytes} bytes)")
+    ops.check_kernel_errors(dev)
+    return dict(playout_ms=ms, search_ms=sms)
+
+
+def replay_duel(res, komi):
+    """Replay a duel through the plain engine on the CPU: every valid move
+    legal for the side to move, finished games frozen, the final grids
+    and area winners reproduced, resignations consistent."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch.goenv import engine
+
+    actions = torch.as_tensor(res["actions"]).long()
+    valid = torch.as_tensor(res["move_valid"])
+    board = engine.init_board(9, batch=actions.shape[1], device="cpu")
+    for t in range(actions.shape[0]):
+        a, mv = actions[t], valid[t]
+        side = board[:, 0, 0, 16].numpy()
+        check(bool((side[mv.numpy()] == res["players"][t][mv.numpy()]).all()),
+              f"duel move {t}: a recorded player is not the side to move")
+        illegal = engine.illegal_moves_mask_batch(board).gather(1, a[:, None])
+        check(not bool((illegal[:, 0] & mv).any()),
+              f"duel move {t}: a recorded move is illegal")
+        board = torch.where(mv[:, None, None, None],
+                            engine.step_batch(board, a), board)
+    check(torch.equal(engine.signed_stones(board),
+                      engine.signed_stones(res["final_boards"])),
+          "the replayed duel ends on other boards")
+    w, _, _ = engine.score_batch(board, komi)
+    check(np.array_equal(w.numpy(), res["area_winners"]),
+          "the replayed duel's area winners differ")
+    resigned = res["winners"] != res["area_winners"]
+    check(int(resigned.sum()) <= res["michi_resigns"],
+          "a winner differs from the area score without a michi resign")
+    return int(res["move_valid"].sum())
+
+
+def michi_gtp_session(seed, card):
+    """python -m sejonggo_torch.io.gtp --preset strength --engine michi
+    with the committed pattern files, at the default 1400 simulations:
+    genmove B, play W (a legal reply), genmove B, genmove W, final_score,
+    quit.  Each genmove's simulations come from the engine's stderr, its
+    launches from the line it prints at exit; the session is replayed
+    through the plain engine on the CPU (each genmove legal, the same
+    final_score)."""
+    import json
+
+    import numpy as np
+
+    from sejonggo_torch.goenv import engine, gtp_to_xy, xy_to_gtp
+
+    proc, ask, err = gtp_process(
+        [sys.executable, "-m", "sejonggo_torch.io.gtp", "--preset",
+         "strength", "--engine", "michi", "--spat", PATTERNS + ".spat",
+         "--prob", PATTERNS + ".prob"])
+    rng = np.random.RandomState(seed)
+    board = engine.init_board(9, device="cpu")
+    secs, moves = [], []
+    try:
+        for line in ("boardsize 9", "komi 5.5", "clear_board"):
+            gtp_ok(ask(line))
+        for cmd in ("genmove B", "play W", "genmove B", "genmove W"):
+            color = 1 if cmd.endswith("B") else -1
+            if cmd == "play W":
+                legal = engine.legal_moves_mask(board)[:81].numpy()
+                a = int(rng.choice(np.nonzero(legal)[0]))
+                vertex = xy_to_gtp(a % 9, a // 9, 9)
+                gtp_ok(ask(f"play W {vertex}"))
+            else:
+                t = time.perf_counter()
+                vertex = gtp_ok(ask(cmd))
+                secs.append(time.perf_counter() - t)
+                check(vertex != "resign", f"michi resigned at {cmd}")
+            x, y = gtp_to_xy(vertex, 9)
+            if cmd != "play W":
+                mask = engine.legal_moves_mask(
+                    board if int(board[0, 0, 16]) == color
+                    else engine._swap_sides(board))
+                check(bool(mask[81 if y == 9 else y * 9 + x]),
+                      f"{cmd} gave the illegal {vertex}")
+            board, _ = engine.play_at(board, x, y, color)
+            moves.append(vertex)
+        score = gtp_ok(ask("final_score"))
+        gtp_ok(ask("quit"))
+        code = proc.wait(timeout=120)
+        err.seek(0)
+        log_text = err.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+    check(code == 0, f"the michi GTP process exited {code}")
+    w, bp, wp = engine.score(board, 5.5)
+    want = "0" if int(w) == 0 else \
+        ("B+" if int(w) == 1 else "W+") + str(abs(float(bp) - float(wp)))
+    check(score == want, f"final_score {score!r}, the replay gives {want!r}")
+    sims = [int(ln.split()[2]) for ln in log_text.splitlines()
+            if ln.startswith("michi genmove:")]
+    lines = [ln for ln in log_text.splitlines()
+             if ln.startswith("kernel launches:")]
+    check(len(sims) == MICHI_GTP_GENMOVES and lines,
+          f"the engine's stderr lacks its genmove or launch lines:\n"
+          f"{log_text[-2000:]}")
+    launches = json.loads(lines[-1].split(":", 1)[1])
+    check(all(s >= 16 for s in sims) and launches["gostep"] > 0,
+          f"genmove simulations {sims}, launches {launches}")
+    ms = [1e3 * x for x in secs]
+    log(f"gtp michi (python -m sejonggo_torch.io.gtp --engine michi, 1400 "
+        f"sims, patterns): moves {' '.join(moves)}, final_score {score}, "
+        f"genmove ms {', '.join(f'{m:.0f}' for m in ms)} (round trip; the "
+        f"first builds the kernels), simulations before the fastplay stop "
+        f"{sims}, launches {launches} on {card}")
+    return dict(genmove_ms=ms, sims=sims, launches=launches, score=score)
+
+
+def phase_michi(seed, dev, card, variables, gostep_row):
+    """The model-free engines: the kernels against their plain versions
+    at the michi shapes, the DUEL_GAMES-game duel of model_291 at
+    strength_9x9_xl against michi@DUEL_SIMS (replayed on the CPU, launch
+    counts, net wins inside DUEL_NET_WINS), and michi over GTP."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch import ops
+    from sejonggo_torch.config import MichiConfig, strength_9x9_xl
+    from sejonggo_torch.learn.duel_michi import play_vs_michi
+    from sejonggo_torch.nets import make_predict_fn
+
+    cmp = michi_kernels_vs_plain(seed, dev, card, gostep_row)
+    search = strength_9x9_xl().search
+    predict = make_predict_fn(xl_net(variables, dev))
+    ops.reset_kernel_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = play_vs_michi(predict, size=9, komi=5.5, search=search,
+                        michi=MichiConfig(komi=5.5, n_sims=DUEL_SIMS),
+                        game_batch=DUEL_GAMES, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = ops.kernel_launches()
+    ops.check_kernel_errors(dev)
+    c = res["counts"]
+    want = michi_launches(c, net_rounds=search.rounds)
+    check(launches == want, f"duel launches {launches}, the counts {c} "
+          f"imply {want}")
+    moves = replay_duel(res, 5.5)
+    lo, hi = DUEL_NET_WINS
+    check(lo <= res["net_wins"] <= hi,
+          f"the net won {res['net_wins']} of {DUEL_GAMES}, outside {lo}-{hi}")
+    net_ms = 1e3 * c["net_seconds"] / c["net_moves"]
+    michi_ms = 1e3 * c["michi_seconds"] / c["michi_moves"]
+    log(f"duel model_291 (xl search, bf16) vs michi@{DUEL_SIMS}: "
+        f"{res['net_wins']}/{DUEL_GAMES} net wins (win rate "
+        f"{res['winrate']:.5f}), {res['michi_resigns']} michi resigns, mean "
+        f"{float(np.mean(res['num_moves'])):.3f} moves, {moves} moves replayed "
+        f"on the CPU; {c['michi_moves']} michi and {c['net_moves']} net "
+        f"half-batch moves of {DUEL_GAMES // 2} games, {michi_ms:.1f} ms per "
+        f"michi move, {net_ms:.1f} ms per net move, {secs:.1f} s in all; "
+        f"michi rounds {c['michi_rounds']}, playout steps "
+        f"{c['michi_playout_steps']}, ladder iterations "
+        f"{c.get('michi_ladder_iters', 0)}; launches {launches} on {card}")
+    gtp = michi_gtp_session(seed, card)
+    return launches, dict(
+        duel=dict(net_wins=res["net_wins"], winrate=res["winrate"],
+                  michi_resigns=res["michi_resigns"],
+                  mean_moves=float(np.mean(res["num_moves"])),
+                  michi_moves=c["michi_moves"], net_moves=c["net_moves"],
+                  michi_ms=michi_ms, net_ms=net_ms, seconds=secs),
+        gtp=gtp, **cmp)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1467,6 +1798,15 @@ def main() -> int:
         f"{kgs['step_ms']:.2f} ms per train step at batch 32, full_19x19, "
         f"on {card}")
 
+    t = time.perf_counter()
+    michi_counts, mi = phase_michi(args.seed, dev, card, variables, gostep_row)
+    ops.check_kernel_errors(dev)
+    log(f"phase 13 michi: ok in {time.perf_counter() - t:.2f} s; duel "
+        f"{mi['duel']['michi_ms']:.1f} ms per michi@{DUEL_SIMS} move, "
+        f"{mi['duel']['net_ms']:.1f} ms per xl net move; michi GTP "
+        f"{mi['gtp']['genmove_ms'][-1]:.0f} ms per genmove at 1400 sims on "
+        f"{card}")
+
     for row in (gostep_row, flood_row):
         name = row["name"]
         row.update(launches=counts[name],
@@ -1479,7 +1819,12 @@ def main() -> int:
                    launches_gtp=gtp_counts[name], gtp_moves=gtp["moves"],
                    gtp_genmoves=gtp["genmoves"],
                    launches_kgs=kgs_counts[name],
-                   kgs_replayed_moves=kgs["replayed_moves"])
+                   kgs_replayed_moves=kgs["replayed_moves"],
+                   launches_duel=michi_counts[name],
+                   duel_michi_moves=mi["duel"]["michi_moves"],
+                   duel_net_moves=mi["duel"]["net_moves"],
+                   launches_michi_gtp=mi["gtp"]["launches"][name],
+                   michi_gtp_genmoves=MICHI_GTP_GENMOVES)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

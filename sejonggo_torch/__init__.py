@@ -11,11 +11,13 @@ names mirror the JAX package so each module's counterpart is easy to find:
                PyTorch versions;
 - ``nets``   — the AlphaZero residual net as an ``nn.Module`` and the
                converter from flax variable trees;
-- ``search`` — the array-backed batched MCTS;
+- ``search`` — the array-backed batched MCTS, and the model-free
+               michi/RAVE engine with its heuristics and patterns;
 - ``actor``  — the move step, whole self-play and evaluation games,
                continuous self-play and the resign calibrator;
-- ``learn``  — the train step, the replay buffer, the gate and the
-               checkpoint store, with its own msgpack decoder and encoder;
+- ``learn``  — the train step, the replay buffer, the gate, the duels
+               and the checkpoint store, with its own msgpack decoder and
+               encoder;
 - ``utils``  — metrics logging and timing;
 - ``pipeline`` — the closed loop: self-play, train, checkpoint, gate.
 

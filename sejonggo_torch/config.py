@@ -1,13 +1,14 @@
 """Typed configuration (a copy of the parts of sejonggo_tpu/config.py the
-port uses: GoConfig, NetConfig, SearchConfig, SelfPlayConfig, TrainConfig,
-EvalConfig, Config, the 9x9 presets and full_19x19).
+port uses: GoConfig, NetConfig, SearchConfig, MichiConfig,
+SelfPlayConfig, TrainConfig, EvalConfig, Config, the 9x9 presets and
+full_19x19).
 
 Kept as its own copy so the port never imports the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +66,53 @@ class SearchConfig:
         if self.max_nodes:
             return self.max_nodes
         return 2 * self.simulations + self.batch_size + 2
+
+
+@dataclasses.dataclass(frozen=True)
+class MichiConfig:
+    """Model-free michi-style RAVE engine (reference conf.py:84-105,
+    mcts1/).  Defaults mirror the reference knobs."""
+
+    n_sims: int = 1400             # N_SIMS
+    expand_visits: int = 8         # EXPAND_VISITS
+    rave_equiv: float = 3500.0     # RAVE_EQUIV
+    prior_even: float = 10.0       # PRIOR_EVEN (pw gets half)
+    prior_capture_one: float = 15.0
+    prior_capture_many: float = 30.0
+    prior_pat3: float = 10.0
+    prior_cfg: Tuple[float, ...] = (24.0, 22.0, 8.0)
+    prior_empty_area: float = 10.0
+    prior_selfatari: float = 10.0  # negative prior (pw += 0)
+    prior_largepattern: float = 100.0
+    resign_thres: float = 0.2      # RESIGN_THRES
+    fastplay20: float = 0.8        # FASTPLAY20_THRES
+    fastplay5: float = 0.95        # FASTPLAY5_THRES
+    prob_capture: float = 0.9      # PROB_HEURISTIC['capture']
+    prob_pat3: float = 0.95        # PROB_HEURISTIC['pat3']
+    prob_ssareject: float = 0.9    # PROB_SSAREJECT
+    prob_rsareject: float = 0.5    # PROB_RSAREJECT
+    use_ladders: bool = True       # read ladders in the priors
+    # k descents per round (each visit doubles as the virtual loss,
+    # reference tree_search.py:35), then one batched playout over k*B
+    # boards, then the k updates; 1 = strictly sequential simulations
+    playout_parallel: int = 16
+    komi: float = 5.5
+    max_tree_depth: int = 0        # 0 = min(2*size^2, node capacity)
+    capacity: int = 0              # node slots; 0 = auto
+
+    def node_capacity(self) -> int:
+        if self.capacity:
+            return self.capacity
+        # one slot per expand_visits simulations, plus root + slack
+        return self.n_sims // max(self.expand_visits, 1) + 8
+
+    def max_depth(self, size: int) -> int:
+        return self.max_tree_depth or min(2 * size * size,
+                                          self.node_capacity())
+
+    def playout_cap(self, size: int) -> int:
+        # MAX_GAME_LEN = 2 * N^2 (tree_search.py:8)
+        return 2 * size * size
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,26 +10,33 @@ The engine runs on one device (CUDA unless ``--device`` names another):
 through the flood kernel four times a move and ``final_score`` twice.
 Where the JAX engine splits a key, the port draws from a CPU
 ``torch.Generator`` seeded from ``seed``, or takes the draws from a
-``draws`` callable (the tests hand in JAX's).  The model-free michi
-engine is not ported yet.
+``draws`` callable (the tests hand in JAX's).  ``--engine michi`` plays
+the model-free michi/RAVE engine (search/michi.py): its playouts step
+through the gostep kernel every step.
 
-Run: python -m sejonggo_torch.io.gtp --preset tiny [--dummy | --model-dir DIR]
+Run: python -m sejonggo_torch.io.gtp --preset tiny [--dummy | --model-dir DIR
+     | --engine michi [--sims N] [--spat F --prob F]] [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
+import types
 from typing import Callable, Optional
 
 import torch
 
 from sejonggo_torch._device import resolve_device
-from sejonggo_torch.config import (Config, SearchConfig, full_19x19,
-                                   small_9x9, strength_9x9)
+from sejonggo_torch.config import (Config, MichiConfig, SearchConfig,
+                                   full_19x19, small_9x9, strength_9x9)
 from sejonggo_torch.goenv import engine, gtp_to_xy, xy_to_gtp
 from sejonggo_torch.search import (advance_root_batch, decide_batch,
                                    new_tree_batch, run_search,
                                    sample_dirichlet)
+from sejonggo_torch.search.michi import MichiSearcher, best_root_stats
+from sejonggo_torch.search.pattern_lut import build_small_pattern_lut
+from sejonggo_torch.search.patterns import PatternStore, root_prior_bonus
 
 COLOR_TO_PLAYER = {"B": 1, "W": -1, "b": 1, "w": -1}
 
@@ -128,6 +135,94 @@ class GoEngine:
             if action < self.size * self.size else (0, self.size)
         self.play(color, x, y)
         return x, y, value
+
+
+class MichiEngine:
+    """Single-game michi-style engine (model-free RAVE search), speaking
+    the same GTP protocol as GoEngine.  Resigns below
+    MichiConfig.resign_thres (conf.py:89 RESIGN_THRES).
+
+    With pattern files, the small-radius table reaches every in-tree
+    expansion and the full-radius host matcher boosts the root
+    (tree_node.py:81-86).  ``draws``, when given, is called once per
+    genmove and returns the searcher's draws(chunk, round); else they
+    come from a generator on ``device`` seeded with ``seed``."""
+
+    def __init__(self, *, size: int, komi: float,
+                 michi: Optional[MichiConfig] = None, seed: int = 0,
+                 spat_file: Optional[str] = None,
+                 prob_file: Optional[str] = None, device=None,
+                 draws: Optional[Callable[[], Callable]] = None):
+        self.size = size
+        self.komi = komi
+        self.cfg = michi or MichiConfig(komi=komi)
+        self.search = types.SimpleNamespace(simulations=self.cfg.n_sims)
+        self.device = resolve_device(device)
+        self.seed = seed
+        self.draws = draws
+        self._searcher = None
+        self._key = None
+        self.last_sims = 0
+        self.patterns = PatternStore()
+        if spat_file and prob_file:
+            self.patterns.load_spat(spat_file)
+            self.patterns.load_probs(prob_file)
+        self.clear()
+
+    def clear(self):
+        self.board = engine.init_board(self.size, device=self.device)
+        self.move_n = 0
+        self.last_action = -1
+
+    @property
+    def player(self) -> int:
+        return int(self.board[0, 0, 16])
+
+    def play(self, color: int, x: int, y: int, update_tree: bool = True):
+        self.board, _ = engine.play_at(self.board, x, y, color)
+        self.last_action = (self.size * self.size if y >= self.size
+                            else y * self.size + x)
+        self.move_n += 1
+        return self.board
+
+    def searcher(self):
+        """The MichiSearcher for the current komi (rebuilt when it
+        changes); its generator carries across genmoves."""
+        if self._searcher is None or self._key != self.komi:
+            lut = (build_small_pattern_lut(self.patterns) if self.patterns
+                   else None)
+            self._searcher = MichiSearcher(
+                dataclasses.replace(self.cfg, komi=self.komi),
+                pattern_lut=lut, device=self.device, seed=self.seed)
+            self._key = self.komi
+        return self._searcher
+
+    def genmove(self, color: int):
+        """Returns (x, y, winrate); y == size means pass, y == size + 1
+        means resign."""
+        if self.player != color:
+            self.board = engine._swap_sides(self.board)
+        searcher = self.searcher()
+        # the move before drives the root CFG locality prior
+        last = torch.tensor([self.last_action], dtype=torch.int32)
+        bonus = None
+        if self.patterns:
+            bonus = torch.from_numpy(root_prior_bonus(
+                self.patterns, self.board, self.cfg.prior_largepattern))[None]
+        trees = searcher.search(
+            self.board[None], last, bonus,
+            draws=None if self.draws is None else self.draws())
+        acts, wrs = best_root_stats(trees)
+        action, wr = int(acts[0]), float(wrs[0])
+        self.last_sims = int(trees.root_v[0])
+        print(f"michi genmove: {self.last_sims} simulations, winrate "
+              f"{wr:.4f}", file=sys.stderr, flush=True)
+        if wr < self.cfg.resign_thres:
+            return 0, self.size + 1, wr
+        x, y = (action % self.size, action // self.size) \
+            if action < self.size * self.size else (0, self.size)
+        self.play(color, x, y)
+        return x, y, wr
 
 
 class GTPFrontend:
@@ -269,6 +364,12 @@ def _build_engine(args):
     cfg: Config = {"tiny": small_9x9, "strength": strength_9x9,
                    "full": full_19x19}[args.preset]()
     device = resolve_device(args.device)
+    if args.engine == "michi":
+        michi = MichiConfig(komi=cfg.go.komi, n_sims=args.sims) \
+            if args.sims else MichiConfig(komi=cfg.go.komi)
+        return MichiEngine(size=cfg.go.size, komi=cfg.go.komi, michi=michi,
+                           spat_file=args.spat, prob_file=args.prob,
+                           device=device)
     if args.dummy or args.engine == "dummy":
         from sejonggo_torch.nets import dummy_predict_fn
 
@@ -295,7 +396,15 @@ def main(argv=None):
     parser.add_argument("--checkpoint", default=None)
     parser.add_argument("--dummy", action="store_true",
                         help="play with the deterministic stub net")
-    parser.add_argument("--engine", choices=["net", "dummy"], default="net")
+    parser.add_argument("--engine", choices=["net", "dummy", "michi"],
+                        default="net",
+                        help="michi = model-free RAVE engine (mcts1 parity)")
+    parser.add_argument("--sims", type=int, default=0,
+                        help="override simulations for --engine michi")
+    parser.add_argument("--spat", default=None,
+                        help="pachi .spat pattern file for --engine michi")
+    parser.add_argument("--prob", default=None,
+                        help="pachi .prob pattern file for --engine michi")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' to run on "
                         "the CPU)")
@@ -304,6 +413,13 @@ def main(argv=None):
     frontend = GTPFrontend(engine_)
     print("GTP engine ready", file=sys.stderr)
     frontend.run()
+    if engine_.device.type == "cuda":
+        import json
+
+        from sejonggo_torch import ops
+
+        print(f"kernel launches: {json.dumps(ops.kernel_launches())}",
+              file=sys.stderr, flush=True)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,13 @@ from sejonggo_torch.search.mcts import (
     run_search,
     simulate_round,
 )
+from sejonggo_torch.search.michi import (
+    MichiSearcher,
+    MichiTree,
+    michi_genmove_batch,
+    michi_search_batch,
+    new_michi_tree_batch,
+)
 from sejonggo_torch.search.tree import (
     Tree,
     new_tree_batch,

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from sejonggo_torch.goenv import engine
@@ -96,24 +97,17 @@ def sample_dirichlet(alpha: float, batch: int, size: int,
     return torch.softmax(log_g, dim=-1)
 
 
-def mix_noise(p: torch.Tensor, noise: torch.Tensor,
-              epsilon: float) -> torch.Tensor:
-    """float32 (1 - epsilon) * p + epsilon * noise, rounded once.
+def _flush(v: torch.Tensor) -> torch.Tensor:
+    """float32 subnormals to zero, as XLA's CPU code flushes them."""
+    return torch.where(v.abs() < torch.finfo(torch.float32).tiny, 0.0, v)
 
-    XLA's CPU backend contracts the JAX package's mix into
-    fma(1 - epsilon, p, epsilon * noise): the float32 product
-    epsilon * noise plus the exact product (1 - epsilon) * p, rounded
-    once.  Both addends are exact in float64; TwoSum gives their sum s
-    and its rounding error e exactly, and rounding s to float32 is
-    correct except where s lies exactly halfway between two float32
-    values and e breaks the tie.  XLA's CPU code also flushes float32
-    subnormals to zero, in its inputs and its results; so does this."""
-    def flush(v):
-        return torch.where(v.abs() < torch.finfo(torch.float32).tiny, 0.0, v)
 
-    keep = float(torch.tensor(1.0 - epsilon, dtype=torch.float32))
-    x = keep * flush(p).to(torch.float64)
-    y = flush(epsilon * flush(noise)).to(torch.float64)
+def _round_sum_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y rounded once to float32, for float64 tensors that are exact.
+
+    TwoSum gives their float64 sum s and its rounding error e exactly;
+    rounding s to float32 is correct except where s lies exactly halfway
+    between two float32 values and e breaks the tie."""
     s = x + y
     bp = s - x
     e = (x - (s - bp)) + (y - bp)
@@ -122,8 +116,39 @@ def mix_noise(p: torch.Tensor, noise: torch.Tensor,
     lo = torch.where(above, torch.nextafter(r, torch.full_like(r, -torch.inf)), r)
     hi = torch.where(above, r, torch.nextafter(r, torch.full_like(r, torch.inf)))
     mid = (s - lo.to(torch.float64)) == (hi.to(torch.float64) - s)
-    return flush(torch.where(mid & (e > 0), hi,
-                             torch.where(mid & (e < 0), lo, r)))
+    return torch.where(mid & (e > 0), hi, torch.where(mid & (e < 0), lo, r))
+
+
+def _f64(x):
+    """A float32 tensor in float64, or a Python number as the float32
+    value nearest it (a Python float holds it exactly)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).to(torch.float64)
+    return float(np.float32(x))
+
+
+def fma32(a, b, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once: the fused multiply-add that XLA's
+    CPU backend contracts a float32 product and sum into.  The product of
+    two float32 values is exact in float64.  ``a`` and ``b`` may be
+    Python numbers (taken as float32 values)."""
+    x = _f64(a) * _f64(b)
+    if not isinstance(x, torch.Tensor):
+        x = torch.full_like(c, x, dtype=torch.float64)
+    return _round_sum_f32(x, c.to(torch.float64))
+
+
+def mix_noise(p: torch.Tensor, noise: torch.Tensor,
+              epsilon: float) -> torch.Tensor:
+    """float32 (1 - epsilon) * p + epsilon * noise, rounded once.
+
+    XLA's CPU backend contracts the JAX package's mix into
+    fma(1 - epsilon, p, epsilon * noise): the float32 product
+    epsilon * noise plus the exact product (1 - epsilon) * p, rounded
+    once.  XLA's CPU code also flushes float32 subnormals to zero, in its
+    inputs and its results; so does this."""
+    keep = float(torch.tensor(1.0 - epsilon, dtype=torch.float32))
+    return _flush(fma32(keep, _flush(p), _flush(epsilon * _flush(noise))))
 
 
 def empty_tree_batch(batch: int, capacity: int, size: int, device) -> Tree:

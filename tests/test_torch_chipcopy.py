@@ -2,8 +2,9 @@
 
 ``.chiprunignore`` keeps the JAX package's run artifacts under ``runs/``
 (~500 MB) out of the copy, all but the files the smoke run reads:
-model_291 and the index beside it, and the 48 rollout SGFs of the 19x19
-corpus (the KGS pretraining phase).  The copy does not honour "!"
+model_291 and the index beside it, the 48 rollout SGFs of the 19x19
+corpus (the KGS pretraining phase) and the two pattern files of
+runs/patterns_r5 (the michi GTP session).  The copy does not honour "!"
 re-inclusion, so the file names every other entry of ``runs/``.  These
 tests fail when an entry of ``runs/`` is neither named there nor one of
 those files, and when the copy would pass its 256 MiB limit."""
@@ -15,7 +16,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 REQUIRED = {"runs/strength_r5b/sp_models/model_291.msgpack",
             "runs/strength_r5b/sp_models/index.json"} | {
     f"runs/full19_r5/corpus/rollout_{r:02d}_{g:03d}.sgf"
-    for r in range(2) for g in range(24)}
+    for r in range(2) for g in range(24)} | {
+    "runs/patterns_r5/patterns.spat", "runs/patterns_r5/patterns.prob"}
 ALWAYS_LEFT_OUT = (".git", "chiprun_out")   # never copied
 LIMIT_BYTES = 256 * 2 ** 20
 

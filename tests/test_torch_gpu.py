@@ -7,6 +7,7 @@ package, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
+import contextlib
 import dataclasses
 import pathlib
 
@@ -401,3 +402,122 @@ def test_play_at_and_score_on_the_card_match_the_cpu(cuda):
         assert played % 4 == 2 and played > 4 * len(moves) // 2
         for a, b in zip(scores[cuda], scores["cpu"]):
             assert torch.equal(a.cpu(), b)
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The engine's, the heuristics' and the search's kernel calls through
+    the plain PyTorch versions, on whatever device the tensors lie."""
+    from sejonggo_torch.goenv import engine
+    from sejonggo_torch.ops import flood, gostep
+    from sejonggo_torch.search import heuristics
+
+    saved = engine.flood_fixpoint, heuristics.flood_fixpoint, gostep.step_legal
+    engine.flood_fixpoint = heuristics.flood_fixpoint = flood.flood_plain
+    gostep.step_legal = gostep.step_legal_plain
+    try:
+        yield
+    finally:
+        engine.flood_fixpoint, heuristics.flood_fixpoint, gostep.step_legal = saved
+
+
+def _midgame(games, moves, seed):
+    """(boards (games, 9, 9, 17), last moves (games,)) after ``moves``
+    contact-biased random legal moves, on the CPU."""
+    from sejonggo_torch.goenv import engine
+    from sejonggo_torch.goenv.positions import choose_actions
+
+    rng = np.random.RandomState(seed)
+    boards = engine.init_board(9, batch=games, device="cpu")
+    act = np.full((games,), -1, np.int32)
+    for _ in range(moves):
+        illegal = engine.illegal_moves_mask_batch(boards).numpy()
+        occ = ((boards[..., 0] == 1) | (boards[..., 1] == 1)).numpy()
+        act = choose_actions(rng, illegal, occ, 0.8, 0.0)
+        boards = engine.step_batch(boards, torch.as_tensor(act))
+    return boards, torch.as_tensor(act)
+
+
+def _cpu_draws(cfg, b, seed):
+    """draws(round) for michi_search_batch, made on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    k, d, s = cfg.playout_parallel, cfg.max_depth(9), cfg.playout_cap(9)
+
+    def draws(r):
+        u = torch.rand((s, k * b, 81), generator=g).clamp(
+            min=torch.finfo(torch.float32).tiny)
+        return {"jitter": torch.rand((k, d, b, 82), generator=g) * 1e-6,
+                "gates": torch.rand((s, k * b, 5), generator=g),
+                "gumbel": -torch.log(-torch.log(u))}
+
+    return draws
+
+
+@pytest.mark.gpu
+def test_michi_playout_kernel_path_matches_plain_and_cpu(cuda):
+    """One heuristic playout of 64 boards: through the kernels and the
+    plain versions on the card, and on the CPU, with the same draws."""
+    from sejonggo_torch.config import MichiConfig
+    from sejonggo_torch.search import michi
+
+    boards, last = _midgame(64, 24, 5)
+    cfg = MichiConfig()
+    g = torch.Generator().manual_seed(1)
+    draws = {"gates": torch.rand((162, 64, 5), generator=g),
+             "gumbel": -torch.log(-torch.log(torch.rand(
+                 (162, 64, 81), generator=g).clamp(min=1e-30)))}
+    amaf = torch.zeros((64, 82), dtype=torch.int8)
+    out = {}
+    for name, dev in (("kernels", cuda), ("plain", cuda), ("cpu", "cpu")):
+        ops.reset_kernel_launches()
+        stats = {}
+        ctx = _plain_kernels() if name == "plain" else contextlib.nullcontext()
+        with ctx:
+            res = michi.mc_playout_batch(
+                boards.to(dev), amaf.to(dev), cfg, last.to(dev), draws=draws,
+                stats=stats, return_final=True)
+        out[name] = [x.cpu() for x in res]
+        if name == "kernels":
+            assert ops.kernel_launches() == {
+                "gostep": stats["playout_steps"], "flood": 2}
+    for name in ("plain", "cpu"):
+        for a, b in zip(out["kernels"], out[name]):
+            assert torch.equal(a, b), name
+    ops.check_kernel_errors(cuda)
+
+
+@pytest.mark.gpu
+def test_michi_search_kernel_path_matches_plain_and_repeats(cuda):
+    """A tiny michi search (3 games, 32 sims in rounds of 4, ladders on):
+    through the kernels twice, through the plain versions on the card,
+    and on the CPU with the same draws: every tree field bit-equal."""
+    from sejonggo_torch.config import MichiConfig
+    from sejonggo_torch.search import michi
+
+    boards, last = _midgame(3, 30, 6)
+    cfg = MichiConfig(n_sims=32, playout_parallel=4, expand_visits=2)
+    out = {}
+    for name, dev in (("kernels", cuda), ("again", cuda), ("plain", cuda),
+                      ("cpu", "cpu")):
+        ops.reset_kernel_launches()
+        stats = {}
+        ctx = _plain_kernels() if name == "plain" else contextlib.nullcontext()
+        with ctx:
+            t0 = michi.new_michi_tree_batch(boards.to(dev), cfg, last.to(dev),
+                                            stats=stats)
+            trees, active = michi.michi_search_batch(
+                t0, cfg, draws=_cpu_draws(cfg, 3, 2), stats=stats)
+        out[name] = ({k: v.cpu() for k, v in trees.fields().items()},
+                     active.cpu())
+        if name == "kernels":
+            launches, counted = ops.kernel_launches(), dict(stats)
+    lc, li = counted.get("ladder_calls", 0), counted.get("ladder_iters", 0)
+    assert launches == {
+        "gostep": counted["playout_steps"] + lc + 2 * li,
+        "flood": 4 * counted["env_steps"] + 2 * counted["scores"] + li}
+    for name in ("again", "plain", "cpu"):
+        assert torch.equal(out["kernels"][1], out[name][1]), name
+        for field, t in out["kernels"][0].items():
+            assert torch.equal(t, out[name][0][field]), (name, field)
+    assert int(out["kernels"][0]["n_nodes"].max()) > 1
+    ops.check_kernel_errors(cuda)

@@ -221,3 +221,71 @@ def test_gtp_frontend_run_loop():
     chunks = [c for c in out.getvalue().split("\n\n") if c.strip()]
     assert len(chunks) == 4 and all(c.startswith("=") for c in chunks)
     assert eng.move_n == 2
+
+
+MICHI_SCRIPT = """name
+boardsize 9
+komi 5.5
+genmove B
+play W D4
+genmove B
+showboard
+genmove W
+final_score
+quit
+"""
+
+
+def test_gtp_michi_engine_matches_jax():
+    """--engine michi with the committed pattern files (the table at
+    every expansion, the host matcher at the root): one script through
+    both frontends, JAX's searcher draws handed in (one key split a
+    genmove, one a chunk)."""
+    from sejonggo_tpu.config import MichiConfig as JMichi
+    from sejonggo_tpu.io.gtp import MichiEngine as JMichiEngine
+    from sejonggo_torch.config import MichiConfig
+    from sejonggo_torch.io.gtp import MichiEngine
+    from test_torch_michi import PROB, SPAT, jax_searcher_draws
+
+    kw = dict(komi=5.5, n_sims=16, playout_parallel=4, expand_visits=2)
+    jeng = JMichiEngine(size=SIZE, komi=5.5, michi=JMichi(**kw), seed=4,
+                        spat_file=SPAT, prob_file=PROB)
+    cfg = MichiConfig(**kw)
+    state = {"rng": jax.random.PRNGKey(4)}
+
+    def draws():
+        state["rng"], sub = jax.random.split(state["rng"])
+        return jax_searcher_draws(sub, cfg, 1, SIZE)
+
+    teng = MichiEngine(size=SIZE, komi=5.5, michi=cfg, spat_file=SPAT,
+                       prob_file=PROB, device="cpu", draws=draws)
+    jout = _transcript(JFrontend(jeng), MICHI_SCRIPT)
+    tout = _transcript(GTPFrontend(teng), MICHI_SCRIPT)
+    for line, j, t in zip(MICHI_SCRIPT.splitlines(), jout, tout):
+        if line != "name":
+            assert t == j, line
+    assert tout[0] == "= sejonggo-torch - 16 simulations\n\n"
+    assert np.array_equal(np.asarray(jeng.board), teng.board.numpy())
+    assert teng.move_n == 4
+
+
+def test_gtp_michi_command_line_on_the_cpu_and_cuda_by_default(monkeypatch):
+    # one torch thread in the engine process: the test workers share the
+    # machine's cores
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    cmd = [sys.executable, "-m", "sejonggo_torch.io.gtp", "--preset", "tiny",
+           "--engine", "michi", "--sims", "16", "--spat",
+           "runs/patterns_r5/patterns.spat", "--prob",
+           "runs/patterns_r5/patterns.prob"]
+    script = "genmove B\nplay W D4\ngenmove B\nfinal_score\nquit\n"
+    proc = subprocess.run(cmd + ["--device", "cpu"], input=script,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    chunks = [c for c in proc.stdout.split("\n\n") if c.strip()]
+    assert len(chunks) == 5 and all(c.startswith("=") for c in chunks)
+    assert chunks[1] == "=" and chunks[3][2:4] in ("B+", "W+")
+    assert proc.stderr.count("michi genmove: 16 simulations") == 2
+    if not torch.cuda.is_available():
+        proc = subprocess.run(cmd, input=script, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode != 0 and "no CUDA device" in proc.stderr

@@ -49,6 +49,10 @@ def _run(code, cwd=REPO, timeout=300):
 def test_port_and_smoke_import_without_jax():
     mods = _modules() + ["chip_smoke"]
     assert "sejonggo_torch.search.mcts" in mods
+    assert {"sejonggo_torch.search.michi", "sejonggo_torch.search.heuristics",
+            "sejonggo_torch.search.patterns", "sejonggo_torch.search.pattern_lut",
+            "sejonggo_torch.search.rollout", "sejonggo_torch.learn.duel",
+            "sejonggo_torch.learn.duel_michi"} <= set(mods)
     code = BLOCKER + f'''
 import importlib
 for m in {mods!r}:
