@@ -54,7 +54,22 @@ at 256 and 16 boards, the 32-game duel of model_291 at strength_9x9_xl
 against michi@64 (launch counts, the games replayed through the plain
 engine, net wins inside a plausibility band), then three michi genmoves
 at 1400 simulations with the committed patterns through
-``python -m sejonggo_torch.io.gtp --engine michi``.
+``python -m sejonggo_torch.io.gtp --engine michi``, 14 multi-rank play
+and training over a ``torch.distributed`` world started as processes
+(``sejonggo_torch.parallel.launch``): one rank per card over NCCL where
+there are two or more cards (four from four), else two ranks on cuda:0
+over gloo; 14a three xl train steps from model_291 on the ranks' halves
+of 256 replay rows against one process on all of them (float32 and bf16;
+every rank's state bit-equal), 14b each rank's share of an 8-game
+``play_games`` over the mesh bit-equal through the kernels and the plain
+versions, then one strength_9x9_xl generation from model_291 shared by
+the ranks (512 games, 256 steps of the split batch of 256, the 128-game
+gate: model_292 written once and read back bit-equal by every rank, the
+same promotion decision, each rank's launches exact and its games
+replayed through the plain engine), 14c ``dryrun_multichip(2)`` on the
+card, 15 bench.py's 19x19 point through the port (B=16, 1600
+simulations in rounds of 100 leaves, 2218 slots, the 20 x 256 bf16 net
+from --seed): ms a move, launches and the net's share.
 The kernels' error word is read after every kernel phase.
 Every phase prints one line with its elapsed seconds; the line before
 the last is the kernel table as JSON, the last line is
@@ -94,6 +109,13 @@ DUEL_NET_WINS = (6, 26)       # a plausibility band, not a strength claim
 MICHI_GAMES, MICHI_BOARDS = 16, 256      # 16 games x k = 16 playouts
 MICHI_GTP_GENMOVES = 3
 PATTERNS = "runs/patterns_r5/patterns"   # .spat and .prob (in git)
+# phase 14: the multi-rank world (its ranks' time limit, the xl train
+# steps of 14a, the sharded play_games of 14b held to the plain versions)
+MULTI_TIMEOUT_S = 420
+MULTI_TRAIN_STEPS = 3
+MULTI_PLAY_GAMES, MULTI_PLAY_MOVES = 8, 6
+# phase 15: bench.py's 19x19 point (bench.py:242-273), timed moves
+B19_GAMES, B19_MOVES = 16, 3
 
 T0 = time.perf_counter()
 
@@ -521,11 +543,12 @@ def phase_checkpoint(dev):
     return variables
 
 
-def replay(stones, actions, move_valid, komi):
+def replay(stones, actions, move_valid, komi, masked_grids=False):
     """Replay (T, B) recorded actions through the plain engine on the CPU
     from empty boards: every valid action legal, every recorded signed
-    grid (T, B, N, N) reproduced, masked moves leave the board as it is;
-    returns the final boards' area-score winners and black points."""
+    grid (T, B, N, N) reproduced (with ``masked_grids`` only at valid
+    moves: padding rows hold no grid), masked moves leave the board as it
+    is; returns the final boards' area-score winners and black points."""
     import torch
 
     from sejonggo_torch.goenv import engine
@@ -534,7 +557,10 @@ def replay(stones, actions, move_valid, komi):
     move_valid = torch.as_tensor(move_valid)
     board = engine.init_board(9, batch=actions.shape[1], device="cpu")
     for t in range(actions.shape[0]):
-        check(torch.equal(engine.signed_stones(board), stones[t]),
+        same = engine.signed_stones(board) == stones[t]
+        if masked_grids:
+            same |= ~move_valid[t][:, None, None]
+        check(bool(same.all()),
               f"replayed boards differ from the record at move {t}")
         a, mv = actions[t], move_valid[t]
         illegal = engine.illegal_moves_mask_batch(board).gather(1, a[:, None])
@@ -806,6 +832,72 @@ def train_parity(replay, dev, seed):
     for k, (e, tol) in errs.items():
         check(e <= tol, f"train step on the card differs from the CPU in {k}: "
               f"{e:.4g} > {tol:.4g}")
+    return batch
+
+
+@contextlib.contextmanager
+def counted_phases(step_cap):
+    """``sejonggo_torch.pipeline``'s self-play actor and gate replaced by
+    counting wrappers while the block runs; yields a dict that gets
+    "selfplay" (steps, slots, the harvested games, seconds, launches; at
+    most ``step_cap`` steps) and "gate" (each batch's moves, its game
+    batches, seconds, launches)."""
+    import torch
+
+    from sejonggo_torch import ops
+    from sejonggo_torch import pipeline as pl
+
+    phases = {}
+
+    def counted(key, fn, record):
+        before = ops.kernel_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        after = ops.kernel_launches()
+        phases[key] = dict(record(out), secs=time.perf_counter() - t,
+                           launches={k: after[k] - before[k] for k in after})
+        return out
+
+    class CountedSelfPlay(pl.ContinuousSelfPlay):
+        def run(self, num_games, **kw):
+            run = super().run
+            return counted(
+                "selfplay", lambda: run(num_games, max_steps=step_cap, **kw),
+                lambda games: dict(steps=self.steps, slots=self.b,
+                                   games=games))
+
+    def counted_eval(*args, **kw):
+        return counted(
+            "gate", lambda: real_eval(*args, **kw), lambda out: dict(
+                moves=[gb.actions.shape[0] for gb in out["game_batches"]],
+                batches=out["game_batches"]))
+
+    real_actor, real_eval = pl.ContinuousSelfPlay, pl.evaluate_models
+    pl.ContinuousSelfPlay, pl.evaluate_models = CountedSelfPlay, counted_eval
+    try:
+        yield phases
+    finally:
+        pl.ContinuousSelfPlay, pl.evaluate_models = real_actor, real_eval
+
+
+def check_generation_launches(phases, counts, rounds):
+    """Each phase of a generation launched the kernels its steps and moves
+    need (self-play: a gostep a round and 6 floods a step; the gate: a
+    gostep a round and 4 floods a move, 2 a batch's score; training
+    none); returns (self-play steps, gate moves)."""
+    sp, gate = phases["selfplay"], phases["gate"]
+    steps, lock = sp["steps"], sum(gate["moves"])
+    check(sp["launches"] == {"gostep": rounds * steps, "flood": 6 * steps},
+          f"self-play launches {sp['launches']} in {steps} steps")
+    check(gate["launches"] == {
+        "gostep": rounds * lock, "flood": 4 * lock + 2 * len(gate["moves"])},
+        f"gate launches {gate['launches']} in {gate['moves']} moves")
+    check(counts == {k: sp["launches"][k] + gate["launches"][k]
+                     for k in counts}, f"generation launches {counts}: the "
+          "train phase launched a Go kernel")
+    return steps, lock
 
 
 def phase_generation(dev, seed, card):
@@ -836,43 +928,12 @@ def phase_generation(dev, seed, card):
           "the strength_9x9_xl generation moved")
     rounds = cfg.search.simulations // cfg.search.batch_size
     step_cap = 2 * (cfg.go.max_moves + 1)   # every game ends by the cap
-    phases = {}
-
-    class CountedSelfPlay(pl.ContinuousSelfPlay):
-        def run(self, num_games, **kw):
-            before = ops.kernel_launches()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            games = super().run(num_games, max_steps=step_cap, **kw)
-            torch.cuda.synchronize()
-            after = ops.kernel_launches()
-            phases["selfplay"] = dict(
-                steps=self.steps, games=len(games),
-                secs=time.perf_counter() - t,
-                launches={k: after[k] - before[k] for k in after})
-            return games
-
-    def counted_eval(*args, **kw):
-        before = ops.kernel_launches()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = real_eval(*args, **kw)
-        torch.cuda.synchronize()
-        after = ops.kernel_launches()
-        phases["gate"] = dict(
-            moves=[gb.actions.shape[0] for gb in out["game_batches"]],
-            secs=time.perf_counter() - t,
-            launches={k: after[k] - before[k] for k in after})
-        return out
-
-    real_actor, real_eval = pl.ContinuousSelfPlay, pl.evaluate_models
     workdir = tempfile.mkdtemp(prefix="sejonggo_generation_")
     try:
         models = os.path.join(workdir, cfg.model_dir)
         os.makedirs(models)
         for f in ("model_291.msgpack", "index.json"):
             shutil.copy(os.path.join(MODELS, f), models)
-        pl.ContinuousSelfPlay, pl.evaluate_models = CountedSelfPlay, counted_eval
         pipe = pl.Pipeline(cfg, workdir, seed, device=dev)
         saved = {}
         real_save = pipe.store.save_state
@@ -882,13 +943,14 @@ def phase_generation(dev, seed, card):
             real_save(name, state)
 
         pipe.store.save_state = save_state
-        ops.reset_kernel_launches()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        (res,) = pipe.run(generations=1)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        counts = ops.kernel_launches()
+        with counted_phases(step_cap) as phases:
+            ops.reset_kernel_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            (res,) = pipe.run(generations=1)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            counts = ops.kernel_launches()
         ops.check_kernel_errors(dev)
         sp, tr, ev = res["selfplay"], res["train"], res["evaluate"]
         check(pipe.store.latest_name() == "model_292",
@@ -913,20 +975,9 @@ def phase_generation(dev, seed, card):
         sp_p, gate_p = phases["selfplay"], phases["gate"]
         check(sp["games"] >= cfg.selfplay.num_games,
               f"{sp['games']} self-play games in {sp_p['steps']} steps")
-        steps, lock = sp_p["steps"], sum(gate_p["moves"])
-        check(sp_p["launches"] == {"gostep": rounds * steps,
-                                   "flood": 6 * steps},
-              f"self-play launches {sp_p['launches']} in {steps} steps")
-        check(gate_p["launches"] == {
-            "gostep": rounds * lock,
-            "flood": 4 * lock + 2 * len(gate_p["moves"])},
-            f"gate launches {gate_p['launches']} in {gate_p['moves']} moves")
-        check(counts == {k: sp_p["launches"][k] + gate_p["launches"][k]
-                         for k in counts}, f"generation launches {counts}: "
-              "the train phase launched a Go kernel")
-        train_parity(pipe.replay, dev, seed)
+        steps, lock = check_generation_launches(phases, counts, rounds)
+        batch = train_parity(pipe.replay, dev, seed)
     finally:
-        pl.ContinuousSelfPlay, pl.evaluate_models = real_actor, real_eval
         shutil.rmtree(workdir, ignore_errors=True)
 
     flops = 3 * forward_flops(cfg.net) * cfg.train.batch_size
@@ -957,7 +1008,7 @@ def phase_generation(dev, seed, card):
         f"{res['best']}; launches {gate_p['launches']}; replay "
         f"{moves} moves")
     return counts, dict(secs=secs, selfplay_steps=steps, gate_moves=lock,
-                        train_ms=train_ms, gate_ms=gate_ms)
+                        train_ms=train_ms, gate_ms=gate_ms, batch=batch)
 
 
 @contextlib.contextmanager
@@ -1375,7 +1426,8 @@ def phase_kgs(seed, dev, card):
         boards, policies, values = next(kgs.kgs_sample_stream(
             CORPUS, 19, batch_size=32, device=dev))
         state = pipe.load("model_2")
-        batch = [pipe._batch(x) for x in (boards, policies, values)]
+        batch = [torch.from_numpy(x).to(dev)
+                 for x in (boards, policies, values)]
         state, _ = pipe.train_step(state, *batch)
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1712,6 +1764,502 @@ def phase_michi(seed, dev, card, variables, gostep_row):
         gtp=gtp, **cmp)
 
 
+# --- phase 14: multi-rank play and training ----------------------------
+
+def multi_world():
+    """(ranks, backend) of phase 14: one rank per card over NCCL where the
+    machine has two or more (4 ranks from 4 cards), else two ranks on
+    cuda:0 over gloo (NCCL refuses two ranks on one card)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    return (4 if count >= 4 else 2), ("nccl" if count >= 2 else "gloo")
+
+
+def flat_state(state):
+    """Parameters, running statistics and momentum of a train state as one
+    float32 host vector."""
+    import torch
+
+    net = state.net
+    return torch.cat([t.detach().reshape(-1).float().cpu() for t in
+                      list(net.parameters()) + list(net.buffers())
+                      + [state.opt_state]]).numpy()
+
+
+def per_rank_bn_step(step, state, rows, shards):
+    """One train step as a world of ``shards`` ranks WITHOUT global
+    BatchNorm statistics would take it, in one process: each shard's step
+    from the same state with its own batch statistics, then the mean of
+    the states.  The SGD update and the running-statistics fold are linear,
+    so the mean is the step with the shards' gradients all-reduced as a
+    mean and their running statistics averaged: the fault 14a exists to
+    catch."""
+    import torch
+
+    from sejonggo_torch.learn import TrainState
+
+    tensors = list(state.net.parameters()) + list(state.net.buffers())
+    start = [t.detach().clone() for t in tensors]
+    per = rows[0].shape[0] // shards
+    ends, outs = [], []
+    for i in range(shards):
+        with torch.no_grad():
+            for t, s0 in zip(tensors, start):
+                t.copy_(s0)
+        out = step(TrainState(state.net, state.opt_state.clone(), state.step),
+                   *(x[i * per:(i + 1) * per] for x in rows))
+        ends.append([t.detach().clone() for t in tensors])
+        outs.append(out)
+    with torch.no_grad():
+        for j, t in enumerate(tensors):
+            t.copy_(sum(e[j] for e in ends) / shards
+                    if t.is_floating_point() else ends[-1][j])
+    trace = sum(o[0].opt_state for o in outs) / shards
+    return TrainState(state.net, trace, outs[-1][0].step), outs[-1][1]
+
+
+def xl_train_steps(batch, dev, dtype, mesh=None, per_rank_bn=0):
+    """MULTI_TRAIN_STEPS xl train steps from model_291 on ``batch`` (this
+    rank's rows when ``mesh`` is given; ``per_rank_bn`` shards with their
+    own BatchNorm statistics, ``per_rank_bn_step``) in ``dtype``: (flat
+    state before, after, losses, ms per step)."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch.config import strength_9x9_xl
+    from sejonggo_torch.learn import (CheckpointStore, make_optimizer,
+                                      make_train_step)
+    from sejonggo_torch.nets import AZNet
+    from sejonggo_torch.parallel import shard_batch
+
+    cfg = strength_9x9_xl()
+    net = AZNet.from_config(9, dataclasses.replace(
+        cfg.net, compute_dtype=dtype)).to(dev)
+    state = CheckpointStore(MODELS).load_state("model_291", net)
+    before = flat_state(state)
+    step = make_train_step(make_optimizer(
+        cfg.train.lr, cfg.train.momentum, cfg.net.l2), cfg.train.loss_mode,
+        mesh=mesh)
+    rows = [x if mesh is None else shard_batch(x, mesh) for x in batch]
+    local = [torch.from_numpy(x).to(dev) for x in rows]
+    losses, secs = [], []
+    for _ in range(MULTI_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if per_rank_bn:
+            state, m = per_rank_bn_step(step, state, local, per_rank_bn)
+        else:
+            state, m = step(state, *local)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t)
+        check(float(m["nonfinite"]) == 0.0, f"{dtype} train step non-finite")
+    return before, flat_state(state), losses, 1e3 * float(np.median(secs[1:]))
+
+
+def rank_train(batch, mesh):
+    """Phase 14a on one rank: the xl steps on its share of the batch in
+    float32 and bf16; every rank's state bit-equal to every other's,
+    checked by the all-reduced max and min of two checksums."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        _, after, losses, ms = xl_train_steps(batch, mesh.device, dtype, mesh)
+        x = torch.from_numpy(after).double()
+        w = (torch.arange(x.numel(), dtype=torch.float64) % 7) + 1
+        c = torch.stack([x.sum(), (x * w).sum()]).to(mesh.device)
+        hi, lo = c.clone(), c.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        check(torch.equal(hi, lo), f"{dtype}: the ranks' states differ "
+              f"after {MULTI_TRAIN_STEPS} steps (checksums {hi.tolist()} "
+              f"against {lo.tolist()})")
+        out[dtype] = dict(flat=after, losses=losses, ms=ms)
+        log(f"rank {mesh.rank}: {MULTI_TRAIN_STEPS} {dtype} xl steps on "
+            f"{len(batch[0]) // mesh.size} of {len(batch[0])} rows, "
+            f"{ms:.2f} ms a step, losses {losses}; state bit-equal on every "
+            "rank (all-reduced max == min)")
+    return out
+
+
+def rank_play_vs_plain(variables, mesh, seed):
+    """Phase 14b on one rank: its share of a MULTI_PLAY_GAMES-game
+    ``play_games`` over the mesh at the xl search from model_291, through
+    the kernels and through the plain versions on the card with the same
+    draws: every record bit-equal."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch.actor import play_games
+    from sejonggo_torch.config import strength_9x9_xl
+    from sejonggo_torch.nets import make_predict_fn
+    from sejonggo_torch.search import sample_dirichlet
+
+    cfg = strength_9x9_xl()
+    search, g = cfg.search, torch.Generator().manual_seed(seed)
+    draws = []
+    for _ in range(MULTI_PLAY_MOVES):
+        u = torch.rand((MULTI_PLAY_GAMES, 82),
+                       generator=g).clamp(1e-20, 1 - 1e-7)
+        draws.append(dict(
+            noise=sample_dirichlet(search.dirichlet_alpha, MULTI_PLAY_GAMES,
+                                   82, g),
+            syms=torch.randint(0, 7, (search.rounds,), generator=g).tolist(),
+            gumbel=-torch.log(-torch.log(u))))
+    predict = make_predict_fn(xl_net(variables, mesh.device))
+
+    def play():
+        return play_games(predict, size=9, komi=cfg.go.komi, search=search,
+                          game_batch=MULTI_PLAY_GAMES,
+                          max_moves=MULTI_PLAY_MOVES,
+                          stop_exploration=cfg.selfplay.stop_exploration,
+                          device=mesh.device, mesh=mesh,
+                          draws=lambda m: draws[m])
+
+    kernels = play()
+    with plain_kernels():
+        plain = play()
+    same = {f.name: np.array_equal(getattr(kernels, f.name),
+                                   getattr(plain, f.name))
+            for f in dataclasses.fields(kernels)}
+    check(kernels.actions.shape[1] == MULTI_PLAY_GAMES // mesh.size,
+          f"rank {mesh.rank} played {kernels.actions.shape[1]} games")
+    check(all(same.values()), f"rank {mesh.rank}: sharded play_games differs "
+          f"between kernels and plain versions: {same}")
+    log(f"rank {mesh.rank}: its {MULTI_PLAY_GAMES // mesh.size} of "
+        f"{MULTI_PLAY_GAMES} games, {MULTI_PLAY_MOVES} moves at the xl "
+        "search, "
+        "bit-equal through the kernels and the plain versions on the card")
+
+
+def replay_games(games, komi):
+    """Self-play game dicts replayed in one lockstep batch through the
+    plain engine on the CPU (shorter games padded with masked moves):
+    every move legal, the recorded grids reproduced; returns the winners
+    and black points."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch.goenv import engine
+
+    t_max = max(len(g["actions"]) for g in games)
+    n = games[0]["boards"].shape[1]
+    stones = np.zeros((t_max, len(games), n, n), np.int8)
+    actions = np.full((t_max, len(games)), n * n, np.int32)
+    valid = np.zeros((t_max, len(games)), bool)
+    for i, g in enumerate(games):
+        t = len(g["actions"])
+        stones[:t, i] = engine.signed_stones(torch.from_numpy(g["boards"]))
+        actions[:t, i], valid[:t, i] = g["actions"], True
+    return replay(stones, actions, valid, komi, masked_grids=True)
+
+
+def rank_generation(workdir, seed, mesh):
+    """Phase 14b on one rank: ``Pipeline.run(1)`` at strength_9x9_xl from
+    model_291 in the shared workdir (this rank's share of the 512 games at
+    384 slots, 256 steps of its 128 rows, its 64 gate games).  Returns
+    what the launcher compares across ranks."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch import ops
+    from sejonggo_torch import pipeline as pl
+    from sejonggo_torch.config import strength_9x9_xl
+    from sejonggo_torch.parallel.dryrun import state_digest
+
+    cfg = strength_9x9_xl()
+    rounds = cfg.search.simulations // cfg.search.batch_size
+    pipe = pl.Pipeline(cfg, workdir, seed, device=mesh.device)
+    check((pipe.mesh.size, pipe.mesh.rank) == (mesh.size, mesh.rank),
+          f"the pipeline's mesh {pipe.mesh} on the world's {mesh}")
+    saved, trained = [], []
+    real_save, real_step = pipe.store.save_state, pipe.train_step
+
+    def save_state(name, state):
+        saved.append(name)
+        real_save(name, state)
+
+    def train_step(*args):
+        out = real_step(*args)
+        trained[:] = [out[0]]
+        return out
+
+    pipe.store.save_state, pipe.train_step = save_state, train_step
+    with counted_phases(2 * (cfg.go.max_moves + 1)) as phases:
+        ops.reset_kernel_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        (res,) = pipe.run(generations=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = ops.kernel_launches()
+    ops.check_kernel_errors(mesh.device)
+    sp, tr, ev = res["selfplay"], res["train"], res["evaluate"]
+    sp_p, gate_p = phases["selfplay"], phases["gate"]
+    games, batches = sp_p["games"], gate_p["batches"]
+    check(pipe.store.latest_name() == "model_292",
+          f"latest is {pipe.store.latest_name()!r}")
+    check(saved == (["model_292"] if mesh.rank == 0 else []),
+          f"rank {mesh.rank} wrote {saved}")
+    check(tr["nonfinite_windows"] == 0, "non-finite train windows")
+    written = state_digest(pipe.store.load_state("model_292", pipe._net()))
+    check(written == state_digest(trained[0]),
+          f"rank {mesh.rank}: model_292 read back differs from its state")
+    share = len(mesh.game_slice(GEN_GAMES))
+    check(sp["games"] >= share and len(games) == sp["games"],
+          f"{sp['games']} self-play games, share {share}")
+    steps, lock = check_generation_launches(phases, counts, rounds)
+    gate_games = sum(gb.actions.shape[1] for gb in batches)
+    check(gate_games == len(mesh.game_slice(GATE_GAMES)),
+          f"rank {mesh.rank} played {gate_games} gate games")
+    t = time.perf_counter()
+    winners, black = replay_games(games, cfg.go.komi)
+    check(np.array_equal(winners, [g["winner"] for g in games])
+          and np.array_equal(black, [g["black_points"] for g in games]),
+          "self-play winners differ from the replayed scores")
+    for gb in batches:
+        winners, black = replay(
+            engine_stones(gb.boards), gb.actions, gb.move_valid, cfg.go.komi)
+        check(np.array_equal(winners, gb.winners)
+              and np.array_equal(black, gb.black_points),
+              "gate winners differ from the replayed scores")
+    replay_s = time.perf_counter() - t
+    log(f"rank {mesh.rank}: generation {secs:.2f} s; self-play "
+        f"{sp['games']} games (share {share}) in {steps} steps at "
+        f"{sp_p['slots']} slots, {sp_p['secs']:.2f} s, "
+        f"{1e3 * sp_p['secs'] / steps:.1f} ms a step; train "
+        f"{tr['steps']} steps of {cfg.train.batch_size // mesh.size} rows in "
+        f"{tr['seconds']:.2f} s, {1e3 * tr['seconds'] / tr['steps']:.2f} ms "
+        f"a step, loss {tr['loss']:.4f}; gate {gate_games} games, "
+        f"{lock} moves in {gate_p['secs']:.2f} s, "
+        f"{1e3 * gate_p['secs'] / lock:.1f} ms a move, win rate "
+        f"{ev['winrate']:.4f} of {ev['games']}, promote {ev['promote']}; "
+        f"launches {counts}; {len(games)} self-play games and {gate_games} "
+        f"gate games replayed through the plain engine in {replay_s:.1f} s")
+    return dict(
+        secs=secs, counts=counts, digest=written, saved=saved,
+        promote=ev["promote"], best=res["best"], winrate=ev["winrate"],
+        eval_games=ev["games"], selfplay_games=sp["games"],
+        selfplay_steps=steps, selfplay_secs=sp_p["secs"], gate_moves=lock,
+        gate_secs=gate_p["secs"], train_secs=tr["seconds"],
+        train_steps=tr["steps"], loss=tr["loss"])
+
+
+def engine_stones(boards):
+    import torch
+
+    from sejonggo_torch.goenv import engine
+
+    return engine.signed_stones(torch.from_numpy(boards))
+
+
+def rank_phase14(workdir, batch, seed, variables, timeout_s):
+    """Phase 14 on one rank of the world (``parallel.launch``): 14a the
+    xl train steps, 14b the sharded play_games kernels vs plain, then the
+    generation.  A hang ends the rank with a traceback."""
+    import torch
+
+    from sejonggo_torch.parallel import backend, make_mesh
+
+    faulthandler.dump_traceback_later(timeout_s - 30, exit=True)
+    # the smoke's own precision settings (phase 4): no TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh()
+    log(f"rank {mesh.rank} of {mesh.size} on {mesh.device} over {backend()}")
+    train = rank_train(batch, mesh)
+    rank_play_vs_plain(variables, mesh, seed)
+    gen = rank_generation(workdir, seed, mesh)
+    return dict(rank=mesh.rank, world=mesh.size, backend=backend(),
+                device=str(mesh.device), train=train, generation=gen)
+
+
+def phase_multirank(seed, dev, card, batch, variables):
+    """Phase 14: the world of ``multi_world()`` ranks started as processes
+    (``sejonggo_torch.parallel.launch``, a time limit, exit codes
+    checked): 14a the xl train step on the ranks against one process on
+    the same 256 rows, sorted by stone count so that the ranks' halves
+    differ (float32 within 5% of one process's update, bf16 within twice
+    its bf16-vs-float32 gap, both in L2 over the parameters, statistics
+    and momentum, each limit above this run's noise floor and at most
+    half its per-rank BatchNorm fault; every rank's state bit-equal), 14b each rank's share of
+    a sharded play_games bit-equal through the kernels and the plain
+    versions, then one strength_9x9_xl generation from model_291 shared
+    by the ranks (model_292 written once, by rank 0, and read back
+    bit-equal by every rank; the same promotion decision everywhere; each
+    rank's launches exact and its games replayed), then 14c
+    ``dryrun_multichip(2)`` on the card."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sejonggo_torch.parallel.dryrun import dryrun_multichip
+    from sejonggo_torch.parallel.launch import launch
+
+    # emptier boards to rank 0: per-rank BatchNorm statistics would differ
+    order = np.argsort(batch[0][..., :2].sum((1, 2, 3)), kind="stable")
+    batch = tuple(x[order] for x in batch)
+    world, backend = multi_world()
+    log(f"phase 14 world: {world} ranks over {backend} "
+        f"({torch.cuda.device_count()} card(s))")
+    workdir = tempfile.mkdtemp(prefix="sejonggo_multirank_")
+    try:
+        models = os.path.join(workdir, "sp_models")
+        os.makedirs(models)
+        for f in ("model_291.msgpack", "index.json"):
+            shutil.copy(os.path.join(MODELS, f), models)
+        t = time.perf_counter()
+        ranks = launch(world, f"{os.path.abspath(__file__)}:rank_phase14",
+                       (workdir, batch, seed, variables, MULTI_TIMEOUT_S),
+                       timeout_s=MULTI_TIMEOUT_S, echo=True)
+        launch_s = time.perf_counter() - t
+        files = set(os.listdir(workdir))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    check([r["backend"] for r in ranks] == [backend] * world,
+          f"backends {[r['backend'] for r in ranks]}")
+    gens = [r["generation"] for r in ranks]
+    for k in ("promote", "best", "winrate", "eval_games", "digest", "loss"):
+        check(len({repr(g[k]) for g in gens}) == 1,
+              f"the ranks differ in {k}: {[g[k] for g in gens]}")
+    check(gens[0]["eval_games"] == GATE_GAMES,
+          f"{gens[0]['eval_games']} gate games in all")
+    check(sum(g["selfplay_games"] for g in gens) >= GEN_GAMES,
+          "fewer self-play games than the generation's")
+    for i in range(world):
+        check({f"run_state_p{i}.json", f"replay_p{i}.npz"} <= files,
+              f"rank {i}'s run state is missing: {sorted(files)}")
+    # 14a: the ranks against one process on the same rows, beside two
+    # readings of this run: the noise floor (one process on the same rows
+    # in three other orders: float32 sums in another order, which
+    # BatchNorm's fast variance amplifies on near-constant channels) and
+    # the fault (per-rank BatchNorm statistics on the ranks' halves,
+    # per_rank_bn_step).  The limits, float32 5% of one process's update
+    # and bf16 twice its bf16-vs-float32 gap, must lie above the noise
+    # floor and at most half the fault, so that 14a fails the fault
+    one = {d: xl_train_steps(batch, dev, d) for d in ("float32", "bfloat16")}
+    update = float(np.linalg.norm(one["float32"][1] - one["float32"][0]))
+    rng = np.random.RandomState(seed)
+    perms = [rng.permutation(len(batch[0])) for _ in range(3)]
+    noise, fault = {}, {}
+    for d in ("float32", "bfloat16"):
+        noise[d] = max(float(np.linalg.norm(
+            xl_train_steps(tuple(x[p] for x in batch), dev, d)[1]
+            - one[d][1])) for p in perms)
+        fault[d] = float(np.linalg.norm(
+            xl_train_steps(batch, dev, d, per_rank_bn=world)[1] - one[d][1]))
+    tols = {"float32": 5e-2 * update,
+            "bfloat16": 2 * float(np.linalg.norm(one["bfloat16"][1]
+                                                 - one["float32"][1]))}
+    errs = {}
+    for d in ("float32", "bfloat16"):
+        check(all(np.array_equal(r["train"][d]["flat"],
+                                 ranks[0]["train"][d]["flat"]) for r in ranks),
+              f"{d}: the ranks' states differ")
+        err = float(np.linalg.norm(ranks[0]["train"][d]["flat"] - one[d][1]))
+        errs[d] = (err, tols[d])
+    log(f"phase 14a: {MULTI_TRAIN_STEPS} xl steps on {world} ranks vs one "
+        f"process, {len(batch[0])} rows of the generation's replay: "
+        + ", ".join(f"{d} L2 err {e:.6g} (tolerance {t:.6g}; noise floor "
+                    f"{noise[d]:.6g}, per-rank BatchNorm fault "
+                    f"{fault[d]:.6g})" for d, (e, t) in errs.items())
+        + f" (float32 update {update:.6g}); losses ranks "
+        f"{ranks[0]['train']['float32']['losses']}, one process "
+        f"{one['float32'][2]}; ms a step: ranks "
+        f"{ranks[0]['train']['float32']['ms']:.2f} "
+        f"float32, {ranks[0]['train']['bfloat16']['ms']:.2f} bf16, one "
+        f"process {one['float32'][3]:.2f} float32, "
+        f"{one['bfloat16'][3]:.2f} bf16 on {card}")
+    for d, (e, tol) in errs.items():
+        check(noise[d] < tol <= fault[d] / 2,
+              f"{d}: the limit {tol:.4g} does not separate the noise floor "
+              f"{noise[d]:.4g} from the per-rank BatchNorm fault "
+              f"{fault[d]:.4g}")
+        check(e <= tol, f"{d}: the ranks' step differs from one process's: "
+              f"{e:.4g} > {tol:.4g}")
+    g0 = gens[0]
+    log(f"phase 14b: one strength_9x9_xl generation on {world} ranks in "
+        f"{launch_s:.2f} s with start-up and checks, "
+        f"{max(g['secs'] for g in gens):.2f} s of Pipeline.run on the "
+        f"slowest rank; self-play steps {[g['selfplay_steps'] for g in gens]},"
+        f" train {g0['train_steps']} steps in "
+        f"{[round(g['train_secs'], 2) for g in gens]} s, gate moves "
+        f"{[g['gate_moves'] for g in gens]}; win rate {g0['winrate']:.4f}, "
+        f"promote {g0['promote']} on every rank; model_292 written once and "
+        f"read back bit-equal by every rank; launches "
+        f"{[g['counts'] for g in gens]} on {card}")
+    t = time.perf_counter()
+    dryrun_multichip(2, timeout_s=300)
+    log(f"phase 14c: dryrun_multichip(2) on the card in "
+        f"{time.perf_counter() - t:.2f} s")
+    return ranks, dict(world=world, backend=backend, launch_s=launch_s)
+
+
+def phase_bench19(seed, dev, card):
+    """bench.py's 19x19 point through the port (bench.py:242-273): the
+    self-play move step at B=16, 1600 simulations in rounds of 100
+    leaves, 2218 tree slots, the full_19x19 net (20 x 256, bf16) with
+    weights from --seed; one warm move and B19_MOVES timed ones, the net
+    timed alone at one round's 1600 boards."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch import ops
+    from sejonggo_torch.actor import init_state, make_move_step
+    from sejonggo_torch.config import SearchConfig, full_19x19
+
+    search = SearchConfig(simulations=1600, batch_size=100, use_symmetry=True,
+                          max_nodes=2218)
+    b = B19_GAMES
+    predict, _ = full_net(seed, dev)
+    step = make_move_step(predict, search, 19, selfplay=True)
+    state = init_state(b, 19, search, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    greedy = torch.zeros(b, dtype=torch.bool, device=dev)
+    thr = torch.full((b,), float("nan"), device=dev)
+    secs = []
+    for i in range(1 + B19_MOVES):
+        if i == 1:
+            ops.reset_kernel_launches()
+        before = state.boards
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, rec, _ = step(state, greedy, thr, generator=gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        check(bool(torch.isfinite(rec["values"]).all()), "non-finite values")
+        legal_check(before, rec["actions"], rec["move_valid"])
+    counts = ops.kernel_launches()
+    rounds = search.rounds
+    check(counts == {"gostep": rounds * B19_MOVES, "flood": 4 * B19_MOVES},
+          f"19x19 launches {counts} in {B19_MOVES} moves")
+    rng = np.random.RandomState(seed)
+    leaves = torch.from_numpy(
+        (rng.rand(b * search.batch_size, 19, 19, 17) < 0.2).astype(np.float32)
+    ).to(dev)
+    net_ms = time_ms(lambda: predict(leaves), 3)
+    tflops = (forward_flops(full_19x19().net, 19) * len(leaves)
+              / (net_ms * 1e-3) / 1e12)
+    move_ms = 1e3 * float(np.mean(secs[1:]))
+    share = rounds * net_ms / move_ms
+    log(f"phase 15 19x19 bench point: B={b}, 1600 sims in {rounds} rounds of "
+        f"100, 2218 slots, 20x256 bf16: warm move {1e3 * secs[0]:.1f} ms, "
+        f"then {', '.join(f'{1e3 * s:.1f}' for s in secs[1:])} ms a move "
+        f"(mean {move_ms:.1f}), "
+        f"{b * search.simulations / (move_ms * 1e-3):.1f} env-steps/s; the net {net_ms:.2f} ms per {b * search.batch_size} "
+        f"boards ({tflops:.1f} TFLOP/s from the shapes, "
+        f"{100 * tflops / 989:.1f}% of the 989 TFLOP/s bf16 peak), "
+        f"{rounds} calls = {100 * share:.1f}% of a move; launches "
+        f"{counts} on {card}")
+    return counts, dict(moves=B19_MOVES, move_ms=move_ms, net_ms=net_ms,
+                        net_share=share)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1806,6 +2354,16 @@ def main() -> int:
         f"{mi['duel']['net_ms']:.1f} ms per xl net move; michi GTP "
         f"{mi['gtp']['genmove_ms'][-1]:.0f} ms per genmove at 1400 sims on "
         f"{card}")
+    t = time.perf_counter()
+    multi_ranks, multi = phase_multirank(args.seed, dev, card, gen["batch"],
+                                         variables)
+    log(f"phase 14 multi-rank: ok in {time.perf_counter() - t:.2f} s; "
+        f"{multi['world']} ranks over {multi['backend']} on {card}")
+    t = time.perf_counter()
+    b19_counts, b19 = phase_bench19(args.seed, dev, card)
+    ops.check_kernel_errors(dev)
+    log(f"phase 15 19x19 bench point: ok in {time.perf_counter() - t:.2f} s; "
+        f"{b19['move_ms']:.1f} ms a move at B={B19_GAMES} on {card}")
 
     for row in (gostep_row, flood_row):
         name = row["name"]
@@ -1824,7 +2382,17 @@ def main() -> int:
                    duel_michi_moves=mi["duel"]["michi_moves"],
                    duel_net_moves=mi["duel"]["net_moves"],
                    launches_michi_gtp=mi["gtp"]["launches"][name],
-                   michi_gtp_genmoves=MICHI_GTP_GENMOVES)
+                   michi_gtp_genmoves=MICHI_GTP_GENMOVES,
+                   launches_multirank_generation=[
+                       r["generation"]["counts"][name] for r in multi_ranks],
+                   multirank_world=multi["world"],
+                   multirank_backend=multi["backend"],
+                   multirank_selfplay_steps=[
+                       r["generation"]["selfplay_steps"] for r in multi_ranks],
+                   multirank_gate_moves=[
+                       r["generation"]["gate_moves"] for r in multi_ranks],
+                   launches_bench19=b19_counts[name],
+                   bench19_moves=b19["moves"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

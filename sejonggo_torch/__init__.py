@@ -18,8 +18,12 @@ names mirror the JAX package so each module's counterpart is easy to find:
 - ``learn``  — the train step, the replay buffer, the gate, the duels
                and the checkpoint store, with its own msgpack decoder and
                encoder;
-- ``utils``  — metrics logging and timing;
-- ``pipeline`` — the closed loop: self-play, train, checkpoint, gate.
+- ``parallel`` — data parallelism over a ``torch.distributed`` group,
+               one rank per card: meshes of ranks, collectives, the
+               launcher of a world and the multi-rank dry run;
+- ``utils``  — metrics logging, timing and a profiler trace;
+- ``pipeline`` — the closed loop: self-play, train, checkpoint, gate, on
+               one card or one rank per card.
 
 Entry points default to ``device="cuda"`` and raise if CUDA is absent;
 the CPU is used only when the caller passes it explicitly.

@@ -13,6 +13,12 @@ callable that hands in given values per step (the tests pass JAX's).
 The JAX actor's ``selfplay`` flag is not ported: no caller turns it off,
 so the slots always play self-play moves (root noise, one search
 symmetry for the batch).
+
+With a ``mesh`` (``sejonggo_torch.parallel``) the slots are split over
+the ranks, as the JAX actor shards them over 'dp': each rank runs its
+game_batch / mesh.size slots with its rows of each step's draws, and
+``run(num_games)`` harvests this rank's share of the games (the ranges of
+``local_game_slice``), so the ranks need no collective while they play.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from sejonggo_torch.actor.selfplay import (MoveState, host_copy,
 from sejonggo_torch.config import SearchConfig
 from sejonggo_torch.goenv import engine
 from sejonggo_torch.ops import check_kernel_errors
+from sejonggo_torch.parallel import shard_actor_state
 from sejonggo_torch.search import new_tree_batch
 from sejonggo_torch.search.tree import Tree
 
@@ -92,7 +99,10 @@ class ContinuousSelfPlay:
     ``threshold_fn()`` gives each new game its resign threshold (NaN =
     off, the default), fixed for the game's life.  ``draws(step)``, when
     given, returns the keyword draws of that step (``noise``, ``syms``,
-    ``gumbel``); otherwise they come from ``generator``."""
+    ``gumbel``); otherwise they come from ``generator``.  With a ``mesh``
+    this rank holds game_batch / mesh.size of the slots (``self.b``), and
+    ``draws`` hands in the whole batch's draws, of which it takes its
+    rows."""
 
     def __init__(self, predict: Callable, *, size: int, komi: float,
                  search: SearchConfig, game_batch: int,
@@ -100,10 +110,22 @@ class ContinuousSelfPlay:
                  max_moves: Optional[int] = None,
                  generator: torch.Generator | None = None,
                  threshold_fn: Optional[Callable[[], float]] = None,
-                 device=None, draws: Optional[Callable[[int], dict]] = None):
+                 device=None, draws: Optional[Callable[[int], dict]] = None,
+                 mesh=None):
         dev = resolve_device(device)
         self.size = size
+        self.mesh = mesh
         self.b = game_batch
+        if mesh is not None:
+            if game_batch % mesh.size:
+                raise ValueError(
+                    f"game_batch={game_batch} not divisible by mesh size "
+                    f"{mesh.size}")
+            self.b = game_batch // mesh.size
+            if draws is not None:
+                global_draws = draws
+                draws = lambda step: shard_actor_state(  # noqa: E731
+                    global_draws(step), mesh)
         self.generator = generator
         self.draws = draws
         self.max_moves = max_moves or 2 * size * size
@@ -180,7 +202,10 @@ class ContinuousSelfPlay:
         is called per finished game; max_steps bounds the steps of this
         call.  As in the JAX loop, step t's record is read after step
         t + 1 has started, so a respawned game's first step still runs
-        under its slot's previous threshold."""
+        under its slot's previous threshold.  With a mesh, ``num_games``
+        is the count over every rank and this rank plays its share."""
+        if self.mesh is not None:
+            num_games = len(self.mesh.game_slice(num_games))
         finished = []
         dev = self.state.boards.device
 

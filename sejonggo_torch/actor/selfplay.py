@@ -17,7 +17,14 @@ returns their stacked records.
 Random draws (the root Dirichlet noise, the D4 symmetries, the Gumbel
 draws of temperature-1 moves) come from a CPU ``torch.Generator``, or
 from a ``draws`` callable that hands in given values per move (the tests
-pass JAX's).  The JAX package's ``mesh`` option is not ported.
+pass JAX's).
+
+With a ``mesh`` (``sejonggo_torch.parallel``) the game batch is split
+over the ranks, as the JAX package shards it over 'dp': each rank plays
+its B / mesh.size games with its rows of the thresholds, the colours and
+the draws.  Side by side, the ranks' records are the records of one
+batch, game by game up to each game's end; a rank's batch may end before
+the global one, so only the padding rows after the end differ.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from sejonggo_torch._device import resolve_device
 from sejonggo_torch.config import SearchConfig
 from sejonggo_torch.goenv import engine
 from sejonggo_torch.ops import check_kernel_errors
+from sejonggo_torch.parallel import shard_actor_state, shard_batch
 from sejonggo_torch.search import (advance_root_batch, decide_batch,
                                    new_tree_batch, policy_target_batch,
                                    run_search, sample_dirichlet, tree_where)
@@ -253,7 +261,8 @@ def play_games(predict1: Callable, predict2: Optional[Callable] = None, *,
                selfplay: bool = True, stop_exploration: int = 30,
                resign_thresholds=None, model1_isblack=None,
                max_moves: Optional[int] = None, device=None,
-               draws: Optional[Callable[[int], dict]] = None) -> GameBatch:
+               draws: Optional[Callable[[int], dict]] = None,
+               mesh=None) -> GameBatch:
     """Play B games to the end; returns their stacked per-move records.
 
     predict fns: boards (M, N, N, 17) float32 -> (policy (M, A), values
@@ -267,17 +276,30 @@ def play_games(predict1: Callable, predict2: Optional[Callable] = None, *,
 
     As in the JAX loop, the host reads move t's flags after it has
     started move t + 1, so the batch may take one extra move in which
-    every game is masked; T counts it."""
+    every game is masked; T counts it.
+
+    ``mesh``: ``game_batch`` is the global batch and this rank plays and
+    returns its share (``shard_batch`` of the thresholds, colours and
+    each move's draws); ``generator`` draws for the rank's games only."""
     dev = resolve_device(device)
     b = game_batch
     if max_moves is None:
         max_moves = 2 * size * size
-    if resign_thresholds is None:
-        thr = torch.full((b,), float("nan"), dtype=torch.float32, device=dev)
-    else:
-        thr = torch.as_tensor(np.asarray(resign_thresholds, np.float32)).to(dev)
+    thr = (np.full((b,), np.nan, np.float32) if resign_thresholds is None
+           else np.asarray(resign_thresholds, np.float32))
     isblack = (np.ones((b,), bool) if model1_isblack is None
                else np.asarray(model1_isblack, bool).copy())
+    if mesh is not None:
+        if b % mesh.size:
+            raise ValueError(
+                f"game_batch={b} not divisible by mesh size {mesh.size}")
+        thr, isblack = shard_batch(thr, mesh), shard_batch(isblack, mesh)
+        b //= mesh.size
+        if draws is not None:
+            global_draws = draws
+            draws = lambda move_n: shard_actor_state(  # noqa: E731
+                global_draws(move_n), mesh)
+    thr = torch.as_tensor(thr).to(dev)
     dual = predict2 is not None
     move_step = make_move_step(predict1, search, size, selfplay, predict2)
     state = init_state(b, size, search, device=dev, dual=dual,

@@ -169,9 +169,19 @@ class EvalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DistConfig:
+    """Data-parallel layout (replaces reference conf.py:57-82 host lists).
+    The port runs one process per card (``sejonggo_torch/parallel``)."""
+
+    # Ranks over which the train batch is split.  0 = every rank of the
+    # process group; any other value must equal the group's size.
+    dp: int = 0
+    mesh_axis_name: str = "dp"
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
-    """The slices of the JAX package's Config that the port runs (the
-    multi-device DistConfig waits for multi-card play)."""
+    """The slices of the JAX package's Config that the port runs."""
 
     go: GoConfig = dataclasses.field(default_factory=GoConfig)
     net: NetConfig = dataclasses.field(default_factory=NetConfig)
@@ -179,6 +189,7 @@ class Config:
     selfplay: SelfPlayConfig = dataclasses.field(default_factory=SelfPlayConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    dist: DistConfig = dataclasses.field(default_factory=DistConfig)
     model_dir: str = "sp_models"
     selfplay_dir: str = "sp_self_play_data"
     log_dir: str = "logs"

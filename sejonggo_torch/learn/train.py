@@ -1,7 +1,10 @@
-"""Training step (port of sejonggo_tpu/learn/train.py, one device).
+"""Training step (port of sejonggo_tpu/learn/train.py).
 
 Reference counterpart: train.py:24-72 (SGD lr 1e-2 momentum 0.9, batch
-32, NUM_WORKERS=64 steps per epoch).
+32, NUM_WORKERS=64 steps per epoch) and train.py:75-133's
+keras.multi_gpu_model data parallelism, which the JAX package makes a
+sharded jit over the 'dp' axis of a mesh and the port a step over the
+ranks of a ``parallel.Mesh`` with explicit collectives.
 
 L2: the reference regularizes every conv/dense kernel AND bias with
 keras l2(1e-4) (model.py:23-26), i.e. a d(loss)/dw contribution of
@@ -21,12 +24,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
 
 from sejonggo_torch.nets import az_loss, batch_norms, fold_batch_stats
+from sejonggo_torch.parallel import replicate
 
 
 @dataclasses.dataclass
@@ -131,13 +136,26 @@ def init_train_state(net: nn.Module, step: int = 0,
                       torch.tensor(step, dtype=torch.int32, device=dev))
 
 
-def make_train_step(tx: SGD, loss_mode: str = "agz") -> Callable:
+def make_train_step(tx: SGD, loss_mode: str = "agz", mesh=None) -> Callable:
     """step(state, boards, policy_targets, value_targets) -> (state,
     metrics): one SGD update of ``state.net`` in place, on tensors on
     the net's device.  Metrics are 0-d device tensors: loss, policy_ce,
     value_mse, grad_norm and nonfinite (1.0 when the update was
-    skipped)."""
+    skipped).
+
+    With a ``mesh`` of several ranks the step is the JAX package's
+    sharded step over 'dp': each rank passes its even share of the global
+    batch (``parallel.host_local_batch`` checks it: the mean of the
+    ranks' means is the global mean only when the shards are equal).
+    BatchNorm normalises with the global batch's statistics
+    (``nets/azero.py:_norm``), the flat gradient is all-reduced once a
+    step as a mean, and so are the loss metrics; the non-finite guard
+    reads the reduced values, so every rank applies or skips the same
+    update and the parameters stay identical by construction.  Rank 0's
+    state is broadcast once, at the first step of each net."""
     decay = {}  # device -> flat decay vector (2 l2 where decayed, else 0)
+    multi = mesh is not None and mesh.size > 1
+    replicated = weakref.WeakSet()   # nets whose state came from rank 0
 
     def step_fn(state: TrainState, boards, policy_targets, value_targets):
         net = state.net
@@ -149,12 +167,24 @@ def make_train_step(tx: SGD, loss_mode: str = "agz") -> Callable:
                 torch.full((p.numel(),), 2.0 * tx.l2 if mask[n] else 0.0,
                            device=dev)
                 for n, p in net.named_parameters()])
-        logits, values, batch = net(boards, train=True)
+        if multi and net not in replicated:
+            replicate(state, mesh)
+            replicated.add(net)
+        logits, values, batch = net(boards, train=True,
+                                    mesh=mesh if multi else None)
         total, metrics = az_loss(logits, values, policy_targets,
                                  value_targets, loss_mode)
         grads = torch.autograd.grad(total, params)
         with torch.no_grad():
             w, g = _flat(params), _flat(grads)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if multi:
+                g = mesh.mean(g)
+                names = list(metrics)
+                reduced = mesh.mean(torch.stack(
+                    [metrics[k] for k in names] + [total.detach()]))
+                metrics = dict(zip(names, reduced[:-1]))
+                total = reduced[-1]
             gnorm = torch.linalg.vector_norm(g)
             trace = state.opt_state * tx.momentum + (g + decay[dev] * w)
             new_w = w + trace * (-tx.lr)
@@ -172,7 +202,6 @@ def make_train_step(tx: SGD, loss_mode: str = "agz") -> Callable:
             _write(stats, torch.where(ok, new_stats, old_stats))
             new_state = TrainState(net, torch.where(ok, trace, state.opt_state),
                                    state.step + ok.to(torch.int32))
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(grad_norm=gnorm, nonfinite=(~ok).to(torch.float32))
         return new_state, metrics
 

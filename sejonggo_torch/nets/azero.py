@@ -71,16 +71,29 @@ def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, *_weights(lin, x.dtype))
 
 
-def _norm(bn: nn.BatchNorm2d, x: torch.Tensor, stats) -> torch.Tensor:
+def _norm(bn: nn.BatchNorm2d, x: torch.Tensor, stats,
+          mesh=None) -> torch.Tensor:
     """flax BatchNorm of ``x`` (in its compute dtype, float32 inside).
     ``stats`` None: the running statistics.  A list: the batch's own,
-    appended to it as (mean, var)."""
+    appended to it as (mean, var).  With a ``mesh`` of several ranks the
+    batch is the global one, split over the ranks, as in the JAX
+    package's sharded step (where XLA inserts the collective): the
+    per-channel sums of x and x² and the count are all-reduced in one
+    differentiable collective."""
     if stats is None:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
     xf = x.float()
-    mean = xf.mean((0, 2, 3))
-    var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+    if mesh is None or mesh.size == 1:
+        mean = xf.mean((0, 2, 3))
+        meansq = (xf * xf).mean((0, 2, 3))
+    else:
+        c = xf.shape[1]
+        count = xf.new_full((1,), xf.numel() // c)
+        sums = mesh.all_reduce_sum_grad(torch.cat(
+            [xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
+        mean, meansq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+    var = (meansq - mean * mean).clamp_min(0.0)
     stats.append((mean, var))
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean[:, None, None]) * mul[:, None, None]
@@ -114,9 +127,9 @@ class ResBlock(nn.Module):
         self.conv2 = nn.Conv2d(filters, filters, 3, padding=1)
         self.bn2 = _bn(filters)
 
-    def forward(self, x, stats=None):
-        y = F.relu(_norm(self.bn1, _conv(self.conv1, x), stats))
-        y = _norm(self.bn2, _conv(self.conv2, y), stats)
+    def forward(self, x, stats=None, mesh=None):
+        y = F.relu(_norm(self.bn1, _conv(self.conv1, x), stats, mesh))
+        y = _norm(self.bn2, _conv(self.conv2, y), stats, mesh)
         return F.relu(y + x)
 
 
@@ -153,19 +166,22 @@ class AZNet(nn.Module):
     def _flatten_nhwc(x):
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
-    def forward(self, boards: torch.Tensor, train: bool = False):
+    def forward(self, boards: torch.Tensor, train: bool = False, mesh=None):
         """(B, N, N, 17) -> (policy logits (B, N*N+1), values (B, 1)),
         both float32, computed in ``compute_dtype``.  With ``train`` the
         BatchNorms use batch statistics, and a third item lists each
-        one's batch (mean, var) in ``batch_norms`` order."""
+        one's batch (mean, var) in ``batch_norms`` order; with a ``mesh``
+        of several ranks those of the global batch (``_norm``)."""
         stats = [] if train else None
         x = boards.to(self.compute_dtype).permute(0, 3, 1, 2)
-        h = F.relu(_norm(self.stem_bn, _conv(self.stem_conv, x), stats))
+        h = F.relu(_norm(self.stem_bn, _conv(self.stem_conv, x), stats, mesh))
         for block in self.blocks:
-            h = block(h, stats)
-        p = F.relu(_norm(self.policy_bn, _conv(self.policy_conv, h), stats))
+            h = block(h, stats, mesh)
+        p = F.relu(_norm(self.policy_bn, _conv(self.policy_conv, h), stats,
+                         mesh))
         logits = _dense(self.policy_out, self._flatten_nhwc(p))
-        v = F.relu(_norm(self.value_bn, _conv(self.value_conv, h), stats))
+        v = F.relu(_norm(self.value_bn, _conv(self.value_conv, h), stats,
+                         mesh))
         v = F.relu(_dense(self.value_hidden, self._flatten_nhwc(v)))
         value = torch.tanh(_dense(self.value_out, v))
         if train:

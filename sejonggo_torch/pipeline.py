@@ -1,5 +1,5 @@
 """Closed actor-learner loop: self-play -> train -> evaluate -> gate (port
-of sejonggo_tpu/pipeline.py on one device).
+of sejonggo_tpu/pipeline.py).
 
 Reference counterpart: pipeline_sequent.py / main.py:13-28 — the
 sequential loop of (self-play with best model) -> (train latest) ->
@@ -13,14 +13,24 @@ are separate modules.  Where the JAX loop splits a ``jax.random`` key, the
 port draws from one CPU ``torch.Generator`` seeded from ``seed``; its
 state is part of the run state.  The KGS pretraining phase replays SGF
 games on the pipeline's device; self-play games can be archived as SGF
-and/or the reference's HDF5 samples.  Not ported yet: the multi-device
-and multi-host layouts.
+and/or the reference's HDF5 samples.
+
+Several cards: one process per card, each a rank of a
+``torch.distributed`` group (``sejonggo_torch/parallel``), all sharing
+the workdir, as the JAX package runs one process per host:
 
     python -m sejonggo_torch.pipeline --preset tiny --device cpu
+    python -m sejonggo_torch.pipeline --preset strength \
+        --coordinator host0:29500 --num-hosts 2 --host-id {0,1}
+    # two machines of 4 cards: rank 4h+i on card i of machine h
+    python -m sejonggo_torch.pipeline --preset strength \
+        --coordinator host0:29500 --num-hosts 8 --host-id 4h+i --local-rank i
+    torchrun --nproc-per-node 4 -m sejonggo_torch.pipeline --preset strength
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -32,7 +42,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sejonggo_torch._device import resolve_device
 from sejonggo_torch.actor import ContinuousSelfPlay, ResignCalibrator
 from sejonggo_torch.config import (Config, full_19x19, small_9x9,
                                    strength_9x9)
@@ -43,20 +52,41 @@ from sejonggo_torch.learn import (CheckpointStore, PlateauScheduler,
                                   save_segment)
 from sejonggo_torch.nets import (AZNet, from_jax_variables, init_variables,
                                  make_predict_fn)
+from sejonggo_torch.parallel import (host_local_batch, init_distributed,
+                                     make_mesh, process_count, process_index,
+                                     rank_device, rank_seed)
 from sejonggo_torch.utils.metrics import MetricsLogger
 
 logger = logging.getLogger("sejonggo_torch.pipeline")
 
 
 class Pipeline:
-    """Actor-learner loop on one device (``device``: CUDA unless the
-    caller names another)."""
+    """Actor-learner loop over the ranks of a process group, one card
+    each (``device``: the rank's card unless the caller names another).
+
+    Parallel layout (the JAX package's, with one device per host; it
+    replaces the reference's 3 self-play servers + 1 training server over
+    BaseManager RPC + scp, conf.py:57-82, master_coordinator.py:120-157):
+    one ``mesh`` of every rank (``cfg.dist.dp``, or the ``mesh`` passed
+    in, which the JAX package also uses for both its meshes).  Each rank
+    plays its ``mesh.game_slice`` of the self-play and gate games on its
+    card with its own generator and harvests into its own replay window:
+    the JAX package's per-host actor mesh holds one device here, so the
+    actors run unsharded.  The global train batch is split evenly; each
+    rank samples its share from its own replay, and the step all-reduces
+    gradients and BatchNorm statistics (``learn/train.py``), so the
+    parameters stay replicated.
+
+    Rank 0 writes every checkpoint and the best pointer while the others
+    wait at a barrier; the gate's counts are summed over the ranks, so
+    every rank takes the same promotion decision.  One process: the mesh
+    holds the one rank and every collective is a no-op."""
 
     def __init__(self, cfg: Config, workdir: str = ".", seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
         self.workdir = workdir
-        self.device = resolve_device(device)
+        self.device = rank_device(device)
         self.store = CheckpointStore(os.path.join(workdir, cfg.model_dir))
         self.lr = cfg.train.lr
         self.tx = make_optimizer(self.lr, cfg.train.momentum, cfg.net.l2)
@@ -67,8 +97,13 @@ class Pipeline:
                 self.lr, factor=cfg.train.lr_plateau_factor,
                 patience=cfg.train.lr_plateau_patience,
                 min_lr=cfg.train.lr_min)
-        self.train_step = make_train_step(self.tx, cfg.train.loss_mode)
-        self.generator = torch.Generator().manual_seed(seed)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            cfg.dist.dp, cfg.dist.mesh_axis_name, device=self.device)
+        self.train_step = make_train_step(self.tx, cfg.train.loss_mode,
+                                          mesh=self.mesh)
+        # each rank draws from its own stream (the port's form of
+        # jax.random.fold_in(key, process_index)); one process: ``seed``
+        self.generator = torch.Generator().manual_seed(rank_seed(seed))
         self.replay = ReplayBuffer(cfg.train.replay_window, cfg.go.size,
                                    seed=seed)
         self.calibrator = ResignCalibrator(
@@ -101,11 +136,23 @@ class Pipeline:
         self.lr = lr
         self.tx = make_optimizer(lr, self.cfg.train.momentum,
                                  self.cfg.net.l2)
-        self.train_step = make_train_step(self.tx, self.cfg.train.loss_mode)
+        self.train_step = make_train_step(self.tx, self.cfg.train.loss_mode,
+                                          mesh=self.mesh)
         logger.info("learning rate set to %g", lr)
 
-    def _batch(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+    def _put_train_batch(self, arr: np.ndarray) -> torch.Tensor:
+        """This rank's rows of the global train batch on its device,
+        checked to be its even share."""
+        return host_local_batch(torch.from_numpy(arr).to(self.device),
+                                self.mesh, self.cfg.train.batch_size)
+
+    @property
+    def _local_train_batch_size(self) -> int:
+        n = self.mesh.size
+        bs = self.cfg.train.batch_size
+        if bs % n:
+            raise ValueError(f"train batch {bs} not divisible by {n} ranks")
+        return bs // n
 
     # --- model lifecycle (reference model.py:98-157) --------------------
 
@@ -115,13 +162,38 @@ class Pipeline:
     def init_models(self):
         """Create model_1 as best+latest if the store is empty
         (reference create_initial_model model.py:98-122)."""
-        if self.store.latest_name() is None:
+        empty = self.store.latest_name() is None
+        # every rank has looked at the store before rank 0 writes to it
+        self.mesh.barrier()
+        if empty:
             net = self._net()
             net.load_state_dict(from_jax_variables(init_variables(
                 self.cfg.go.size, self.cfg.net, self.generator)))
-            self.store.save_state("model_1", init_train_state(net))
-            self.store.set_best("model_1")
+            self._save_state_global("model_1", init_train_state(net),
+                                    best=True)
             logger.info("created initial model_1 (best)")
+
+    def _save_state_global(self, name: str, state, best: bool = False):
+        """Checkpoint once per world: rank 0 writes (and points ``best``
+        at it when asked; the shared workdir replaces the reference's scp
+        model shipping, scpy.py:47-55), every rank waits at a barrier."""
+        if process_index() == 0:
+            self.store.save_state(name, state)
+            if best:
+                self.store.set_best(name)
+        self.mesh.barrier()
+
+    def _save_exit_backup(self, state, phase: str) -> None:
+        """Rank 0 keeps its in-flight state as 'exit_backup' when its
+        phase fails; no barrier: the other ranks may be inside a
+        collective of another size, and the launcher or torchrun ends the
+        world when this rank's error propagates."""
+        if process_index() == 0:
+            self.store.save_state("exit_backup", state)
+            logger.exception("%s aborted; state saved as 'exit_backup'",
+                             phase)
+        else:
+            logger.exception("%s aborted", phase)
 
     def load(self, name: str):
         # fallback: a dangling/torn checkpoint degrades to the newest
@@ -139,6 +211,8 @@ class Pipeline:
         best = self.store.best_name()
         state = self.load(best)
         n = num_games or cfg.selfplay.num_games
+        # several ranks: each plays its share of the games on its card
+        n = len(self.mesh.game_slice(n))
         t0 = time.time()
         actor = ContinuousSelfPlay(
             make_predict_fn(state.net), size=cfg.go.size, komi=cfg.go.komi,
@@ -344,7 +418,7 @@ class Pipeline:
         if not games:
             return None
         os.makedirs(self.segment_dir, exist_ok=True)
-        prefix = "seg_p0_"
+        prefix = f"seg_p{process_index()}_"
         if self._segment_seq is None:
             existing = [int(f[len(prefix):-4])
                         for f in os.listdir(self.segment_dir)
@@ -382,7 +456,10 @@ class Pipeline:
         cfg = self.cfg
         latest = self.store.latest_name()
         state = self.load(latest)
+        # named before the first step: no rank can see rank 0's new file
+        name = self.store.next_name()
         steps = cfg.train.epochs_per_save * cfg.train.iters_per_epoch
+        local_bs = self._local_train_batch_size
         t0 = time.time()
         # per-step loss curves, downsampled (reference streams per-step
         # TB scalars via the fake-epoch trick, train.py:63-70)
@@ -392,11 +469,11 @@ class Pipeline:
         skipped = consecutive_bad = 0
         try:
             for i in range(steps):
-                boards, policies, values = self.replay.sample(
-                    cfg.train.batch_size)
+                boards, policies, values = self.replay.sample(local_bs)
                 state, metrics = self.train_step(
-                    state, self._batch(boards), self._batch(policies),
-                    self._batch(values))
+                    state, self._put_train_batch(boards),
+                    self._put_train_batch(policies),
+                    self._put_train_batch(values))
                 if (i + 1) % log_every == 0 or i + 1 == steps:
                     m = {k: float(v) for k, v in metrics.items()}
                     self.metrics.log("train_step", phase="train",
@@ -422,12 +499,9 @@ class Pipeline:
         except BaseException:
             # crash-save (reference atexit exit_backup.h5 save,
             # main_training.py:22-25,101): keep the in-flight state
-            self.store.save_state("exit_backup", state)
-            logger.exception("train phase aborted; state saved as "
-                             "'exit_backup'")
+            self._save_exit_backup(state, "train phase")
             raise
-        name = self.store.next_name()
-        self.store.save_state(name, state)
+        self._save_state_global(name, state)
         dt = time.time() - t0
         means = {k: v / max(n_logged, 1) for k, v in sums.items()}
         stats = {
@@ -453,37 +527,38 @@ class Pipeline:
         `backup_every` steps writes a crash-recovery 'backup' checkpoint
         (reference EPOCHS_PER_BACKUP / save_backup_model).  The games are
         replayed on the pipeline's device, shuffled by
-        ``RandomState(0)`` as the JAX package's single process does."""
+        ``RandomState(rank)`` as the JAX package's processes do; each
+        rank trains on its share of the batch."""
         from sejonggo_torch.io.kgs import kgs_sample_stream
 
         cfg = self.cfg
         latest = self.store.latest_name()
         state = self.load(latest)
+        name = self.store.next_name()
         stream = kgs_sample_stream(
-            data_dir, cfg.go.size, batch_size=cfg.train.batch_size,
-            rng=np.random.RandomState(0), loop=True, device=self.device)
+            data_dir, cfg.go.size, batch_size=self._local_train_batch_size,
+            rng=np.random.RandomState(process_index()), loop=True,
+            device=self.device)
         t0 = time.time()
         last_metrics = {}
         done_steps = 0
         try:
             for boards, policies, values in stream:
                 state, metrics = self.train_step(
-                    state, self._batch(boards), self._batch(policies),
-                    self._batch(values))
+                    state, self._put_train_batch(boards),
+                    self._put_train_batch(policies),
+                    self._put_train_batch(values))
                 last_metrics = metrics
                 done_steps += 1
                 if backup_every and done_steps % backup_every == 0:
-                    self.store.save_state("backup", state)
+                    self._save_state_global("backup", state)
                 if done_steps >= steps:
                     break
         except BaseException:
             # reference atexit crash-save (main_training.py:22-25,101)
-            self.store.save_state("exit_backup", state)
-            logger.exception("kgs pretrain aborted; state saved as "
-                             "'exit_backup'")
+            self._save_exit_backup(state, "kgs pretrain")
             raise
-        name = self.store.next_name()
-        self.store.save_state(name, state)
+        self._save_state_global(name, state)
         dt = time.time() - t0
         stats = {
             "from": latest, "to": name,
@@ -495,7 +570,11 @@ class Pipeline:
                                      **stats))
 
     def evaluate_phase(self) -> dict:
-        """Latest vs best gating (reference evaluator.py:23-47)."""
+        """Latest vs best gating (reference evaluator.py:23-47).
+
+        Several ranks: each plays its share of the match on its card; the
+        win, game and draw counts are summed over the ranks, so every
+        rank takes the same promotion decision."""
         cfg = self.cfg
         latest = self.store.latest_name()
         best = self.store.best_name()
@@ -503,14 +582,21 @@ class Pipeline:
             return {"phase": "evaluate", "skipped": True}
         predict_latest = make_predict_fn(self.load(latest).net)
         predict_best = make_predict_fn(self.load(best).net)
-        n_games = cfg.eval.num_games
+        n_games = len(self.mesh.game_slice(cfg.eval.num_games))
         res = evaluate_models(
             predict_latest, predict_best,
             size=cfg.go.size, komi=cfg.go.komi, search=cfg.search,
-            eval_cfg=cfg.eval, generator=self.generator,
+            eval_cfg=dataclasses.replace(cfg.eval, num_games=n_games),
+            generator=self.generator,
             game_batch=min(n_games, cfg.selfplay.game_batch),
             max_moves=cfg.eval.max_moves,
             collect_games=self.eval_games_to_replay, device=self.device)
+        if self.mesh.size > 1:
+            wins, played, draws = self.mesh.sum_counts(
+                [res["wins"], res["games"], res["draws"]])
+            res.update(wins=int(wins), games=int(played), draws=int(draws),
+                       winrate=wins / played,
+                       promote=wins / played > cfg.eval.margin)
         eval_moves = 0
         for gb in res.pop("game_batches", []):
             # reference NoModelEvaluateWorker saves evaluation games as
@@ -518,7 +604,9 @@ class Pipeline:
             eval_moves += self.replay.add_game_batch(gb)
         res["eval_moves_to_replay"] = eval_moves
         if res["promote"]:
-            self.store.set_best(latest)  # evaluator.py:43-46
+            if process_index() == 0:
+                self.store.set_best(latest)  # evaluator.py:43-46
+            self.mesh.barrier()
             logger.info("promoted %s to best (winrate %.3f)", latest,
                         res["winrate"])
         return dict(self.metrics.log("evaluate", phase="evaluate",
@@ -527,10 +615,16 @@ class Pipeline:
     # --- run-state checkpoint/resume (beyond the reference, which only
     # checkpoints model files — SURVEY.md §5) --------------------------
 
+    @property
+    def _run_state_suffix(self) -> str:
+        # one replay window and generator per rank (shared workdir)
+        return f"_p{process_index()}" if process_count() > 1 else ""
+
     def save_run_state(self) -> None:
         """Persist replay window + resign calibration + the generator's
         state so a crashed or preempted run resumes exactly."""
-        self.replay.save(os.path.join(self.workdir, "replay.npz"))
+        sfx = self._run_state_suffix
+        self.replay.save(os.path.join(self.workdir, f"replay{sfx}.npz"))
         meta = {
             "rng": self.generator.get_state().tolist(),
             "calibrator": {
@@ -540,14 +634,15 @@ class Pipeline:
             "lr": self.lr,
             "plateau": self.plateau.state_dict() if self.plateau else None,
         }
-        meta_path = os.path.join(self.workdir, "run_state.json")
+        meta_path = os.path.join(self.workdir, f"run_state{sfx}.json")
         with open(meta_path + ".tmp", "w") as f:
             json.dump(meta, f)
         os.replace(meta_path + ".tmp", meta_path)
 
     def load_run_state(self) -> bool:
-        replay_path = os.path.join(self.workdir, "replay.npz")
-        meta_path = os.path.join(self.workdir, "run_state.json")
+        sfx = self._run_state_suffix
+        replay_path = os.path.join(self.workdir, f"replay{sfx}.npz")
+        meta_path = os.path.join(self.workdir, f"run_state{sfx}.json")
         if not (os.path.exists(replay_path) and os.path.exists(meta_path)):
             return False
         self.replay = ReplayBuffer.load(
@@ -644,9 +739,27 @@ def main(argv=None):
                         "main_training/main_spe); 'full' runs the closed "
                         "loop")
     parser.add_argument("--device", default=None,
-                        help="torch device (default cuda; 'cpu' to run on "
-                        "the CPU)")
+                        help="torch device (default: this rank's card; "
+                        "'cpu' to run on the CPU)")
+    # several cards (replaces the reference's master/slave deployment):
+    # run the SAME program once per card with these flags, or under
+    # torchrun, which sets RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of rank 0 (several processes)")
+    parser.add_argument("--num-hosts", type=int, default=0,
+                        help="processes in all, one per card")
+    parser.add_argument("--host-id", type=int, default=None,
+                        help="this process's rank")
+    parser.add_argument("--local-rank", type=int, default=None,
+                        help="this process's card on its machine (needed "
+                        "when the world spans more cards than this "
+                        "machine has)")
     args = parser.parse_args(argv)
+
+    if args.num_hosts > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        init_distributed(args.coordinator, args.num_hosts or None,
+                         args.host_id, device=args.device,
+                         local_rank=args.local_rank)
 
     cfg = {"tiny": small_9x9, "strength": strength_9x9,
            "full": full_19x19}[args.preset]()

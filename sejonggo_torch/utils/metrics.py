@@ -1,5 +1,5 @@
-"""Metrics and timing (a copy of sejonggo_tpu/utils/metrics.py without its
-JAX-profiler hook).
+"""Metrics, timing and a profiler trace (port of
+sejonggo_tpu/utils/metrics.py).
 
 Reference counterpart: wall-clock deltas in tqdm descriptions and log
 lines (self_play.py:332-334, evaluator.py:38), TensorBoard scalar
@@ -9,6 +9,7 @@ stream with env-steps/s and sims/s counters.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -86,3 +87,32 @@ def setup_logging(log_dir: Optional[str] = None, level: int = 20,
         h.setLevel(lvl)
         h.setFormatter(fmt)
         root.addHandler(h)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, enabled: bool = True):
+    """A ``torch.profiler`` trace around a block (the host's aten calls,
+    and the card's kernels when CUDA is available), written on exit as a
+    Chrome trace ``trace_<pid>_<ns>.json`` in ``log_dir`` (open it in
+    Perfetto or chrome://tracing); the profiler is yielded.  The
+    counterpart of the JAX package's ``jax.profiler`` hook: the reference
+    had no profiler integration at all (SURVEY.md §5).  ``enabled=False``
+    runs the block untraced and writes nothing."""
+    if not enabled:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

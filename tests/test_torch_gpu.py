@@ -521,3 +521,81 @@ def test_michi_search_kernel_path_matches_plain_and_repeats(cuda):
             assert torch.equal(t, out[name][0][field]), (name, field)
     assert int(out["kernels"][0]["n_nodes"].max()) > 1
     ops.check_kernel_errors(cuda)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _rank_train_steps(batch, seed):
+    """Rank side of the two-rank card test (``parallel.launch``): two
+    float32 steps of a seeded 2x16 net on this rank's half of ``batch``
+    on cuda:0; returns the flat parameters and statistics."""
+    from sejonggo_torch.parallel import make_mesh, shard_batch
+
+    torch.backends.cudnn.allow_tf32 = False       # float32 means float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh()
+    cfg = NetConfig(blocks=2, filters=16, value_hidden=16,
+                    compute_dtype="float32")
+    net = AZNet.from_config(9, cfg)
+    net.load_state_dict(from_jax_variables(
+        seeded_flax_variables(9, cfg, seed)))
+    state = init_train_state(net.to(mesh.device))
+    step = make_train_step(make_optimizer(2e-2, 0.9, 1e-4), mesh=mesh)
+    local = [torch.from_numpy(shard_batch(x, mesh)).to(mesh.device)
+             for x in batch]
+    for _ in range(2):
+        state, m = step(state, *local)
+    flat = torch.cat([t.detach().reshape(-1).cpu() for t in
+                      list(net.parameters()) + list(net.buffers())
+                      + [state.opt_state]])
+    return dict(backend=torch.distributed.get_backend(),
+                device=str(mesh.device), flat=flat.numpy(),
+                loss=float(m["loss"]))
+
+
+@pytest.mark.gpu
+def test_two_rank_train_step_on_one_card_over_gloo(cuda):
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card)
+    take two steps on halves of one batch: their parameters, statistics
+    and momentum are bit-equal, and within 1e-5 of one process's two
+    steps on the whole batch on the card (float32 without TF32)."""
+    from sejonggo_torch.parallel.launch import launch
+
+    rng = np.random.RandomState(4)
+    boards = (rng.rand(16, 9, 9, 17) < 0.3).astype(np.float32)
+    boards[:8] *= rng.rand(8, 9, 9, 17) < 0.3       # sparser first half
+    policy = rng.rand(16, 82).astype(np.float32) ** 4
+    policy /= policy.sum(-1, keepdims=True)
+    values = rng.choice([-1.0, 1.0], size=16).astype(np.float32)
+    batch = (boards, policy, values)
+    ranks = launch(2, f"{__file__}:_rank_train_steps", (batch, 3),
+                   device="cuda:0", timeout_s=300)
+    assert [r["backend"] for r in ranks] == ["gloo", "gloo"]
+    assert [r["device"] for r in ranks] == ["cuda:0", "cuda:0"]
+    assert np.array_equal(ranks[0]["flat"], ranks[1]["flat"])
+    cfg = NetConfig(blocks=2, filters=16, value_hidden=16,
+                    compute_dtype="float32")
+    net = AZNet.from_config(9, cfg)
+    net.load_state_dict(from_jax_variables(seeded_flax_variables(9, cfg, 3)))
+    state = init_train_state(net.to(cuda))
+    step = make_train_step(make_optimizer(2e-2, 0.9, 1e-4))
+    with no_tf32():
+        for _ in range(2):
+            state, m = step(state, *(torch.from_numpy(x).to(cuda)
+                                     for x in batch))
+    flat = torch.cat([t.detach().reshape(-1).cpu() for t in
+                      list(net.parameters()) + list(net.buffers())
+                      + [state.opt_state]]).numpy()
+    np.testing.assert_allclose(ranks[0]["flat"], flat, atol=1e-5, rtol=1e-5)
+    assert abs(ranks[0]["loss"] - float(m["loss"])) <= 1e-5

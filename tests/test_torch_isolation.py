@@ -53,6 +53,9 @@ def test_port_and_smoke_import_without_jax():
             "sejonggo_torch.search.patterns", "sejonggo_torch.search.pattern_lut",
             "sejonggo_torch.search.rollout", "sejonggo_torch.learn.duel",
             "sejonggo_torch.learn.duel_michi"} <= set(mods)
+    assert {"sejonggo_torch.parallel", "sejonggo_torch.parallel.dist",
+            "sejonggo_torch.parallel.mesh", "sejonggo_torch.parallel.launch",
+            "sejonggo_torch.parallel.dryrun"} <= set(mods)
     code = BLOCKER + f'''
 import importlib
 for m in {mods!r}:
