@@ -11,8 +11,9 @@ the I/O entry points: GTP play at full_19x19 width from the trained
 model_2 of runs/full19_r5 and at strength from model_291, and KGS
 pretraining of the full_19x19 net on the committed SGF corpus;
 then the model-free michi engine: its duel against model_291 and its
-GTP play.  Holds each hand-written CUDA kernel against its
-plain PyTorch version on the card.
+GTP play; then the user tools: a strength campaign generation, 19x19
+training and a pattern harvest.  Holds each hand-written CUDA kernel
+against its plain PyTorch version on the card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -73,7 +74,20 @@ same promotion decision, each rank's launches exact and its games
 replayed through the plain engine), 14c ``dryrun_multichip(2)`` on the
 card, 15 bench.py's 19x19 point through the port (B=16, 1600
 simulations in rounds of 100 leaves, 2218 slots, the 20 x 256 bf16 net
-from model_2): ms a move, launches and the net's share.
+from model_2): ms a move, launches and the net's share, then the user
+tools (``sejonggo_torch.tools``) in-process: 16 ``strength_campaign --preset xl
+--seed-from model_291`` for one generation with an 8-game probe and
+confirm against the heuristic engine (the seeded store, the
+campaign.jsonl events, the generation's games, moves, resign telemetry
+and launches, each duel's launches, the probe's games replayed through
+the plain engine), 17 ``train_19x19`` at full ``full_19x19`` width with
+the search cut to 64 simulations in rounds of 16 (a 2-game heuristic
+corpus at 16 simulations, 8 pretraining steps, one generation of 2
+self-play games and a 2-game gate capped at 60 moves: the events,
+model_2 made best, model_2 and model_3 read back bit-equal, the corpus
+SGFs replayed through the plain engine, each part's launches), 18
+``build_patterns`` over 4 corpus games on the card and on the CPU
+(byte-equal pattern files, four floods a replayed move).
 Every kernel-vs-plain comparison runs the plain versions on the card
 through the library's switch ``ops.enable_cuda_kernels(False)``, with no
 launch while it is off.  Phase 6 also holds
@@ -98,7 +112,7 @@ import subprocess
 import sys
 import time
 
-WATCHDOG_S = 1000          # the run must end within 1200 s
+WATCHDOG_S = 1100          # the run must end within 1200 s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 MODELS = "runs/strength_r5b/sp_models"   # model_291, 6x96, 9x9 (in git)
 XL_GAMES, GATE_GAMES = 384, 128          # strength_9x9_xl game_batch, gate
@@ -128,6 +142,11 @@ MULTI_TRAIN_STEPS = 3
 MULTI_PLAY_GAMES, MULTI_PLAY_MOVES = 8, 6
 # phase 15: bench.py's 19x19 point (bench.py:242-273), timed moves
 B19_GAMES, B19_MOVES = 16, 3
+# phases 16-18: the user tools: the campaign's probe and confirm games,
+# train_19x19's search cut and pretraining steps, the harvested games
+CAMPAIGN_GAMES = 8
+TRAIN19_SIMS, TRAIN19_LEAVES, TRAIN19_PRETRAIN_STEPS = 64, 16, 8
+HARVEST_GAMES = 4
 
 T0 = time.perf_counter()
 
@@ -1473,18 +1492,6 @@ def phase_kgs(seed, dev, card):
     cfg = full_19x19()
     check(cfg.train.batch_size == 32, "full_19x19's batch moved")
     replayed = {"moves": 0, "secs": 0.0}
-    real_replay = kgs.replay_sgf
-
-    def counted_replay(text, size, device=None):
-        t = time.perf_counter()
-        out = real_replay(text, size, device)
-        replayed["secs"] += time.perf_counter() - t
-        p = parse_sgf(text)
-        if p["size"] == size:
-            replayed["moves"] += (len(p["moves"]) + len(p["setup_black"])
-                                  + len(p["setup_white"]))
-        return out
-
     workdir = tempfile.mkdtemp(prefix="sejonggo_kgs_")
     try:
         pipe = Pipeline(cfg, workdir, seed, device=dev)
@@ -1499,17 +1506,16 @@ def phase_kgs(seed, dev, card):
             real_save(name, state)
 
         pipe.store.save_state = save_state
-        kgs.replay_sgf = counted_replay
-        ops.reset_kernel_launches()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        stats = pipe.kgs_pretrain_phase(CORPUS, steps=KGS_STEPS,
-                                        backup_every=KGS_BACKUP)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        counts = ops.kernel_launches()
+        with counted_sgf_replays(replayed):
+            ops.reset_kernel_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            stats = pipe.kgs_pretrain_phase(CORPUS, steps=KGS_STEPS,
+                                            backup_every=KGS_BACKUP)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            counts = ops.kernel_launches()
         ops.check_kernel_errors(dev)
-        kgs.replay_sgf = real_replay
         models = os.path.join(workdir, cfg.model_dir)
         check(stats["steps"] == KGS_STEPS and stats["to"] == "model_2",
               f"kgs_pretrain stats {stats}")
@@ -1561,7 +1567,6 @@ def phase_kgs(seed, dev, card):
         step_ms = 1e3 * (time.perf_counter() - t) / KGS_TIMED_STEPS
         check(float(m["nonfinite"]) == 0.0, "timed train step non-finite")
     finally:
-        kgs.replay_sgf = real_replay
         shutil.rmtree(workdir, ignore_errors=True)
     flops = 3 * forward_flops(cfg.net, size=19) * 32
     tflops = flops / (step_ms * 1e-3) / 1e12
@@ -2385,6 +2390,516 @@ def phase_bench19(seed, dev, card):
                         net_share=share, load_s=load_s)
 
 
+# --- phases 16-18: the user tools (sejonggo_torch.tools) -------------------
+
+@contextlib.contextmanager
+def restored_logging():
+    """The tools install logging handlers (``setup_logging``); the block's
+    handlers come off again after it."""
+    import logging
+
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    try:
+        yield
+    finally:
+        for h in root.handlers[:]:
+            if h not in handlers:
+                root.removeHandler(h)
+                h.close()
+        root.setLevel(level)
+
+
+@contextlib.contextmanager
+def counted_calls(owner, name, calls):
+    """``owner.name`` replaced while the block runs by a wrapper that
+    appends each call's kernel launches, seconds and result to
+    ``calls``."""
+    import torch
+
+    from sejonggo_torch import ops
+
+    real = getattr(owner, name)
+
+    def wrapper(*args, **kw):
+        before = ops.kernel_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        after = ops.kernel_launches()
+        calls.append(dict(launches={k: after[k] - before[k] for k in after},
+                          secs=time.perf_counter() - t, out=out))
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, real)
+
+
+@contextlib.contextmanager
+def counted_heuristic_predicts(calls):
+    """``search.rollout.make_heuristic_predict_fn`` made to return a
+    predict that adds one to ``calls["n"]`` a call (two floods each:
+    its area score)."""
+    from sejonggo_torch.search import rollout
+
+    real = rollout.make_heuristic_predict_fn
+
+    def make(*args, **kw):
+        predict = real(*args, **kw)
+
+        def counted(boards):
+            calls["n"] += 1
+            return predict(boards)
+
+        return counted
+
+    rollout.make_heuristic_predict_fn = make
+    try:
+        yield calls
+    finally:
+        rollout.make_heuristic_predict_fn = real
+
+
+@contextlib.contextmanager
+def counted_sgf_replays(replayed):
+    """``io.kgs.replay_sgf`` adding the moves and setup stones of each
+    game it replays to ``replayed["moves"]`` (four floods each) and its
+    seconds to ``replayed["secs"]``."""
+    from sejonggo_torch.io import kgs
+    from sejonggo_torch.io.sgf import parse_sgf
+
+    real = kgs.replay_sgf
+
+    def counted(text, size, device=None):
+        t = time.perf_counter()
+        out = real(text, size, device)
+        replayed["secs"] = replayed.get("secs", 0.0) + time.perf_counter() - t
+        p = parse_sgf(text)
+        if p["size"] == size:
+            replayed["moves"] += (len(p["moves"]) + len(p["setup_black"])
+                                  + len(p["setup_white"]))
+        return out
+
+    kgs.replay_sgf = counted
+    try:
+        yield replayed
+    finally:
+        kgs.replay_sgf = real
+
+
+def game_launches(rounds, moves, batches, heuristic_calls=0):
+    """Launches of lockstep games (``play_games``): a gostep a search
+    round, four floods an env step and two a batch's score, two a
+    heuristic predict."""
+    return {"gostep": rounds * moves,
+            "flood": 4 * moves + 2 * batches + 2 * heuristic_calls}
+
+
+def check_game_batches(batches, komi):
+    """Evaluation game batches replayed through the plain engine on the
+    CPU (moves legal, grids, area winners and value targets)."""
+    import numpy as np
+    import torch
+
+    from sejonggo_torch.goenv import engine
+
+    for gb in batches:
+        winners, black = replay(
+            engine.signed_stones(torch.from_numpy(gb.boards)), gb.actions,
+            gb.move_valid, komi)
+        check(np.array_equal(winners, gb.winners)
+              and np.array_equal(black, gb.black_points),
+              "duel winners differ from the replayed scores")
+        expected = np.where(winners == 0, 0, np.where(gb.players == winners,
+                                                      1, -1))
+        check(np.array_equal(gb.value_targets(), expected),
+              "duel value targets differ from the replayed winners")
+
+
+def phase_campaign(seed, dev, card):
+    """Phase 16: ``python -m sejonggo_torch.tools.strength_campaign
+    --preset xl --seed-from model_291 --generations 1 --probe-every 1
+    --probe-games 8 --confirm-games 8`` in-process in a temporary
+    workdir, nothing of the generation cut (phase 10's generation, through
+    the tool).  Checks: the seeded store (model_291 best, its bytes), the
+    campaign.jsonl events in order (the probe rule: a probe every
+    generation; the confirm when the probe reaches the 0.5 target), the
+    generation line's games, moves and resign telemetry against the
+    pipeline's self-play event, the generation's launches as phase 10
+    counts them, each duel's launches (a gostep a round, four floods a
+    move and two a score, two a heuristic predict), and the probe's
+    games replayed through the plain engine."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    from sejonggo_torch import ops
+    from sejonggo_torch import pipeline as pl
+    from sejonggo_torch.config import strength_9x9_xl
+    from sejonggo_torch.learn import CheckpointStore
+    from sejonggo_torch.learn import duel as duel_mod
+    from sejonggo_torch.tools import strength_campaign
+
+    cfg = strength_9x9_xl()
+    rounds = cfg.search.simulations // cfg.search.batch_size
+    step_cap = 2 * (cfg.go.max_moves + 1)
+    seed_from = os.path.join(MODELS, "model_291.msgpack")
+    workdir = tempfile.mkdtemp(prefix="sejonggo_campaign_")
+    seeded = {}
+    real_seed = strength_campaign.seed_workdir
+
+    def seed_workdir(model_dir, src):
+        real_seed(model_dir, src)
+        store = CheckpointStore(model_dir)
+        seeded.update(best=store.best_name(), names=store.model_names())
+        with open(src, "rb") as a, open(os.path.join(
+                model_dir, "model_291.msgpack"), "rb") as b:
+            seeded["same_bytes"] = a.read() == b.read()
+
+    gens, duels, heur = [], [], {"n": 0}
+    argv = ["--preset", "xl", "--seed-from", seed_from, "--generations", "1",
+            "--probe-every", "1", "--probe-games", str(CAMPAIGN_GAMES),
+            "--confirm-games", str(CAMPAIGN_GAMES), "--seed", str(seed),
+            "--workdir", workdir]
+    real_eval = duel_mod.evaluate_models
+
+    def collecting_eval(*args, **kw):
+        # the probe's games too (the duel asks for them only with SGFs),
+        # and the heuristic predicts it made
+        want = kw.get("collect_games", False)
+        before = heur["n"]
+        out = real_eval(*args, **dict(kw, collect_games=True))
+        out["batches_kept"] = list(out["game_batches"])
+        if not want:
+            del out["game_batches"]
+        out["heuristic_calls"] = heur["n"] - before
+        return out
+
+    strength_campaign.seed_workdir = seed_workdir
+    duel_mod.evaluate_models = collecting_eval
+    try:
+        with restored_logging(), counted_phases(step_cap) as phases, \
+                counted_calls(pl.Pipeline, "run", gens), \
+                counted_calls(duel_mod, "evaluate_models", duels), \
+                counted_heuristic_predicts(heur):
+            ops.reset_kernel_launches()
+            t = time.perf_counter()
+            end = strength_campaign.main(argv)
+            secs = time.perf_counter() - t
+            counts = ops.kernel_launches()
+        ops.check_kernel_errors(dev)
+        with open(os.path.join(workdir, "campaign.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+    finally:
+        strength_campaign.seed_workdir = real_seed
+        duel_mod.evaluate_models = real_eval
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    check(seeded == {"best": "model_291", "names": ["model_291"],
+                     "same_bytes": True}, f"seeded store {seeded}")
+    names = [e["event"] for e in events]
+    probes = [e for e in events if e["event"] == "heuristic_probe"]
+    want = ["generation", "heuristic_probe"]
+    if probes and probes[0]["winrate"] >= 0.5:
+        want.append("heuristic_probe")
+        if len(probes) > 1 and probes[1]["winrate"] >= 0.5:
+            want.append("target_reached")
+    want.append("campaign_done")
+    check(names == want, f"campaign events {names}, expected {want}")
+    check(all(p["games"] == CAMPAIGN_GAMES and p["model"] == events[0]["best"]
+              for p in probes), f"probes {probes}")
+    check(end == events[-1] and end["reached_target"]
+          == ("target_reached" in names), f"campaign_done {end}")
+    (gen,) = [e for e in events if e["event"] == "generation"]
+    (sp,) = [e for e in metrics if e["event"] == "selfplay"]
+    sp_p = phases["selfplay"]
+    check(gen["games"] == sp["games"] >= cfg.selfplay.num_games
+          and gen["moves"] == sp["moves"] > 0,
+          f"generation line {gen} against self-play {sp}")
+    telemetry = ("resign_threshold", "resigned_games", "winner_dip_rate")
+    live = sp["resign_threshold"] is not None or bool(sp["resigned_games"])
+    check(all((k in gen) == live for k in telemetry),
+          f"resign telemetry {gen} with live {live}")
+    if live:
+        check(gen["resign_threshold"] == sp["resign_threshold"]
+              and gen["resigned_games"] == sp["resigned_games"]
+              and gen["winner_dip_rate"] == round(sp["winner_dip_rate"], 4),
+              f"resign telemetry {gen} against {sp}")
+    (g,) = gens
+    steps, lock = check_generation_launches(phases, g["launches"], rounds)
+    check(len(duels) == len(probes), f"{len(duels)} duels, {len(probes)} "
+          "probe events")
+    moves = 0
+    for d, p in zip(duels, probes):
+        out = d["out"]
+        batches = out["batches_kept"]
+        check(out["games"] == CAMPAIGN_GAMES
+              and out["winrate"] == p["winrate"],
+              f"duel of {out['games']} games at {out['winrate']} against {p}")
+        t = sum(gb.actions.shape[0] for gb in batches)
+        moves += t
+        check(d["launches"] == game_launches(rounds, t, len(batches),
+                                             out["heuristic_calls"]),
+              f"duel launches {d['launches']} in {t} moves, "
+              f"{out['heuristic_calls']} heuristic predicts")
+    check_game_batches(duels[0]["out"]["batches_kept"], cfg.go.komi)
+    check(counts == {k: g["launches"][k] + sum(d["launches"][k]
+                                               for d in duels)
+                     for k in counts}, f"campaign launches {counts}")
+    probe_s = duels[0]["secs"]
+    log(f"phase 16 campaign on {card}: {secs:.2f} s in all; generation "
+        f"{g['secs']:.2f} s ({gen['games']} games, {gen['moves']} moves in "
+        f"{steps} self-play steps, {1e3 * sp_p['secs'] / steps:.1f} ms a step; "
+        f"gate {gen['winrate']:.4f} over {sum(phases['gate']['moves'])} "
+        f"lockstep moves, best {gen['best']}; resign threshold "
+        f"{gen.get('resign_threshold')}, resigned {gen.get('resigned_games')}, "
+        f"winner dip rate {gen.get('winner_dip_rate')}); launches "
+        f"{g['launches']}; probe of {CAMPAIGN_GAMES} games against the "
+        f"heuristic engine: win rate {probes[0]['winrate']:.4f} in "
+        f"{probe_s:.2f} s (a plausibility check only), replayed; events "
+        f"{names}; duel launches {[d['launches'] for d in duels]}")
+    return counts, dict(secs=secs, generation_secs=g["secs"],
+                        probe_secs=probe_s, probe_winrate=probes[0]["winrate"],
+                        selfplay_steps=steps, gate_moves=lock,
+                        duel_moves=moves, events=names)
+
+
+def replay_sgf_game(path, komi):
+    """An SGF game replayed through the plain engine on the CPU from an
+    empty 19x19 board: every move legal for its player, and the area
+    score of the final board the game's RE; returns its moves."""
+    import torch
+
+    from sejonggo_torch.goenv import engine
+    from sejonggo_torch.io.sgf import parse_sgf
+
+    with open(path) as f:
+        p = parse_sgf(f.read())
+    n = p["size"]
+    board = engine.init_board(n, batch=1, device="cpu")
+    for i, (player, x, y) in enumerate(p["moves"]):
+        check(int(board[0, 0, 0, 16]) == player,
+              f"{path} move {i}: not the side to move")
+        a = n * n if y >= n else y * n + x
+        check(not bool(engine.illegal_moves_mask_batch(board)[0, a]),
+              f"{path} move {i} is illegal")
+        board = engine.step_batch(board, torch.tensor([a]))
+    w, black, white = engine.score_batch(board, komi)
+    margin = abs(float(black[0]) - float(white[0]))
+    result = "0" if int(w[0]) == 0 else (
+        ("B" if int(w[0]) == 1 else "W") + f"+{margin:g}")
+    check(result == p["result"], f"{path}: replayed {result}, "
+          f"recorded {p['result']}")
+    return len(p["moves"])
+
+
+def phase_train19(seed, dev, card):
+    """Phase 17: ``python -m sejonggo_torch.tools.train_19x19`` in-process
+    at full ``full_19x19`` width (20 x 256 bf16) in a temporary workdir:
+    ``--corpus-games 2 --corpus-sims 16 --pretrain-steps 8 --generations
+    1 --games 2 --game-batch 2 --eval-games 2 --eval-max-moves 60
+    --train-epochs 1``.  Self-play has no move cap, so the cut is the
+    search: TRAIN19_SIMS simulations in rounds of TRAIN19_LEAVES (the
+    tree's slots follow, 2 * 64 + 16 + 2), where the preset has 1600 in
+    rounds of 100; the net is not cut.  No real games are merged into the
+    corpus (``train`` merges only a directory its caller names).  Checks:
+    the train19.jsonl events,
+    model_2 made best after the pretraining, model_2 and model_3 read
+    back bit-equal to the trained states, the corpus SGFs replayed
+    through the plain engine (legal moves, results), and each part's
+    launches (the corpus: a gostep a round, four floods a move, two a
+    score and two a heuristic predict; the pretraining: four floods a
+    replayed move; the generation as phase 10 counts it)."""
+    import dataclasses
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    from sejonggo_torch import actor, ops
+    from sejonggo_torch import pipeline as pl
+    from sejonggo_torch.learn import CheckpointStore, restore
+    from sejonggo_torch.learn.checkpoint import state_tree
+    from sejonggo_torch.tools import train_19x19
+
+    argv = ["--corpus-games", "2", "--corpus-sims", "16", "--pretrain-steps",
+            str(TRAIN19_PRETRAIN_STEPS), "--generations", "1", "--games",
+            "2", "--game-batch", "2", "--eval-games", "2",
+            "--eval-max-moves", "60", "--train-epochs", "1",
+            "--seed", str(seed)]
+    args = train_19x19.parse_args(argv)
+    cfg = train_19x19.config_of(args)
+    cfg = cfg.replace(search=dataclasses.replace(
+        cfg.search, simulations=TRAIN19_SIMS, batch_size=TRAIN19_LEAVES))
+    check(cfg.net.blocks == 20 and cfg.net.filters == 256
+          and cfg.net.compute_dtype == "bfloat16", "full_19x19's net moved")
+    rounds = cfg.search.simulations // cfg.search.batch_size
+    corpus_rounds = train_19x19.corpus_search(16).rounds
+    workdir = args.workdir = tempfile.mkdtemp(prefix="sejonggo_train19_")
+    saved = {}
+    real_save = CheckpointStore.save_state
+
+    def save_state(store, name, state):
+        saved[name] = state_tree(state)
+        real_save(store, name, state)
+
+    corpus, games, pretrain, gens = [], [], [], []
+    heur, replayed = {"n": 0}, {"moves": 0}
+    CheckpointStore.save_state = save_state
+    try:
+        with restored_logging(), counted_phases(2 * (cfg.go.max_moves + 1)) \
+                as phases, \
+                counted_calls(train_19x19, "generate_corpus", corpus), \
+                counted_calls(actor, "play_games", games), \
+                counted_heuristic_predicts(heur), \
+                counted_calls(pl.Pipeline, "kgs_pretrain_phase", pretrain), \
+                counted_sgf_replays(replayed), \
+                counted_calls(pl.Pipeline, "run", gens):
+            ops.reset_kernel_launches()
+            t = time.perf_counter()
+            events = train_19x19.train(cfg, args)
+            secs = time.perf_counter() - t
+            counts = ops.kernel_launches()
+        ops.check_kernel_errors(dev)
+        with open(os.path.join(workdir, "train19.jsonl")) as f:
+            written = [json.loads(line) for line in f]
+        models = os.path.join(workdir, cfg.model_dir)
+        on_disk = {n: restore(os.path.join(models, f"{n}.msgpack"))
+                   for n in ("model_2", "model_3")}
+        sgfs = sorted(os.listdir(os.path.join(workdir, "corpus")))
+        corpus_moves = [replay_sgf_game(os.path.join(workdir, "corpus", f),
+                                        7.5) for f in sgfs]
+    finally:
+        CheckpointStore.save_state = real_save
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    names = [e["event"] for e in written]
+    check(written == events and names == [
+        "corpus", "start", "kgs_pretrain", "pretrain_promoted", "generation",
+        "done"], f"train19 events {names}")
+    ev = dict(zip(names, written))
+    check(ev["corpus"]["games"] == 2 and ev["start"]["best"] == "model_1"
+          and not ev["start"]["resumed"], f"corpus/start {ev}")
+    check(ev["kgs_pretrain"]["to"] == "model_2"
+          and ev["kgs_pretrain"]["steps"] == TRAIN19_PRETRAIN_STEPS
+          and ev["pretrain_promoted"]["best"] == "model_2",
+          f"pretraining {ev['kgs_pretrain']}, {ev['pretrain_promoted']}")
+    g = ev["generation"]
+    check(g["games"] >= 2 and g["best"] == ("model_3" if g["promote"]
+                                            else "model_2")
+          and ev["done"]["latest"] == "model_3", f"generation {g}")
+    for n in ("model_2", "model_3"):
+        check(same_tree(on_disk[n], saved[n]),
+              f"{n}.msgpack differs from the trained state")
+    check(sgfs == ["rollout_00_000.sgf", "rollout_00_001.sgf"],
+          f"corpus files {sgfs}")
+    (c,), (gb,) = corpus, [x["out"] for x in games]
+    t_corpus = gb.actions.shape[0]
+    check(sorted(corpus_moves) == sorted(int(gb.move_valid[:, i].sum())
+                                         for i in range(2)),
+          f"corpus SGF moves {corpus_moves}")
+    check(c["launches"] == game_launches(corpus_rounds, t_corpus, 1,
+                                         heur["n"]),
+          f"corpus launches {c['launches']} in {t_corpus} moves, "
+          f"{heur['n']} heuristic predicts")
+    (p,) = pretrain
+    check(p["launches"] == {"gostep": 0, "flood": 4 * replayed["moves"]},
+          f"pretraining launches {p['launches']} for {replayed['moves']} "
+          "replayed moves")
+    (gg,) = gens
+    steps, lock = check_generation_launches(phases, gg["launches"], rounds)
+    check(counts == {k: c["launches"][k] + p["launches"][k]
+                     + gg["launches"][k] for k in counts},
+          f"train19 launches {counts}")
+    sp_s = phases["selfplay"]["secs"]
+    log(f"phase 17 train_19x19 on {card}: {secs:.2f} s in all; corpus of 2 "
+        f"games at 16 sims: {t_corpus} lockstep moves in {c['secs']:.2f} s "
+        f"({1e3 * c['secs'] / t_corpus:.1f} ms a move), launches "
+        f"{c['launches']}; pretraining {TRAIN19_PRETRAIN_STEPS} steps at "
+        f"batch 32 in {p['secs']:.2f} s ({replayed['moves']} moves "
+        f"replayed), loss {ev['kgs_pretrain']['loss']:.4f}, launches "
+        f"{p['launches']}; generation in {gg['secs']:.2f} s: self-play "
+        f"{g['games']} games, {g['moves']} moves in {steps} steps at "
+        f"{TRAIN19_SIMS} sims ({1e3 * sp_s / steps:.1f} ms a step), "
+        f"gate {g['gate_winrate']} over {lock} lockstep moves "
+        f"({1e3 * phases['gate']['secs'] / lock:.1f} ms a move), promote "
+        f"{g['promote']}, loss {g['loss']}; launches {gg['launches']}")
+    return counts, dict(secs=secs, corpus_secs=c["secs"],
+                        corpus_moves=t_corpus, pretrain_secs=p["secs"],
+                        generation_secs=gg["secs"], selfplay_steps=steps,
+                        gate_moves=lock,
+                        parts={"corpus": c["launches"],
+                               "pretrain": p["launches"],
+                               "generation": gg["launches"]})
+
+
+def phase_harvest(seed, dev, card):
+    """Phase 18: ``python -m sejonggo_torch.tools.build_patterns --size 19
+    --max-games HARVEST_GAMES --sgf-dirs runs/full19_r5/corpus`` in-process,
+    on the card and with ``--device cpu``: the two runs write byte-equal
+    patterns.spat and patterns.prob, the card's replay launches four
+    floods a replayed move and no gostep, the CPU's none."""
+    import os
+    import shutil
+    import tempfile
+
+    from sejonggo_torch import ops
+    from sejonggo_torch.tools import build_patterns
+
+    out = tempfile.mkdtemp(prefix="sejonggo_harvest_")
+    argv = ["--size", "19", "--max-games", str(HARVEST_GAMES), "--sgf-dirs",
+            CORPUS, "--seed", str(seed)]
+    runs, replayed = [], {"moves": 0}
+    try:
+        for device in ("cuda", "cpu"):
+            replayed["moves"] = 0
+            with counted_sgf_replays(replayed), \
+                    counted_calls(build_patterns, "harvest", runs):
+                build_patterns.main(argv + ["--out-dir", os.path.join(
+                    out, device), "--device", device])
+            runs[-1]["moves"] = replayed["moves"]
+        files = {}
+        for name in ("patterns.spat", "patterns.prob"):
+            with open(os.path.join(out, "cuda", name), "rb") as a, \
+                    open(os.path.join(out, "cpu", name), "rb") as b:
+                files[name] = (a.read(), b.read())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    ops.check_kernel_errors(dev)
+    card_run, cpu_run = runs
+    check(all(a == b for a, b in files.values()),
+          "the card's and the CPU's pattern files differ")
+    stats = card_run["out"]
+    check(stats["games"] == HARVEST_GAMES and stats["kept"] > 0
+          and {k: stats[k] for k in ("games", "positions", "kept")}
+          == {k: cpu_run["out"][k] for k in ("games", "positions", "kept")},
+          f"harvests {stats} and {cpu_run['out']}")
+    check(card_run["launches"] == {"gostep": 0,
+                                   "flood": 4 * card_run["moves"]}
+          and cpu_run["launches"] == {"gostep": 0, "flood": 0},
+          f"harvest launches {card_run['launches']} for "
+          f"{card_run['moves']} replayed moves, CPU {cpu_run['launches']}")
+    log(f"phase 18 harvest of {HARVEST_GAMES} 19x19 corpus games: "
+        f"{stats['positions']} positions, {stats['kept']} patterns, "
+        f"{card_run['secs']:.2f} s on {card} ({card_run['moves']} moves "
+        f"replayed, launches {card_run['launches']}), {cpu_run['secs']:.2f} s "
+        f"with --device cpu; the files byte-equal "
+        f"({len(files['patterns.spat'][0])} and "
+        f"{len(files['patterns.prob'][0])} bytes)")
+    return card_run["launches"], dict(card_secs=card_run["secs"],
+                                      cpu_secs=cpu_run["secs"],
+                                      moves=card_run["moves"],
+                                      positions=stats["positions"],
+                                      kept=stats["kept"])
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2491,6 +3006,17 @@ def main() -> int:
     ops.check_kernel_errors(dev)
     log(f"phase 15 19x19 bench point: ok in {time.perf_counter() - t:.2f} s; "
         f"{b19['move_ms']:.1f} ms a move at B={B19_GAMES} on {card}")
+    t = time.perf_counter()
+    campaign_counts, camp = phase_campaign(args.seed, dev, card)
+    log(f"phase 16 campaign: ok in {time.perf_counter() - t:.2f} s; probe "
+        f"win rate {camp['probe_winrate']:.4f} on {card}")
+    t = time.perf_counter()
+    train19_counts, t19 = phase_train19(args.seed, dev, card)
+    log(f"phase 17 train_19x19: ok in {time.perf_counter() - t:.2f} s on "
+        f"{card}")
+    t = time.perf_counter()
+    harvest_counts, hv = phase_harvest(args.seed, dev, card)
+    log(f"phase 18 harvest: ok in {time.perf_counter() - t:.2f} s on {card}")
 
     for row in (gostep_row, flood_row):
         name = row["name"]
@@ -2520,7 +3046,18 @@ def main() -> int:
                    multirank_gate_moves=[
                        r["generation"]["gate_moves"] for r in multi_ranks],
                    launches_bench19=b19_counts[name],
-                   bench19_moves=b19["moves"])
+                   bench19_moves=b19["moves"],
+                   launches_campaign=campaign_counts[name],
+                   campaign_selfplay_steps=camp["selfplay_steps"],
+                   campaign_gate_moves=camp["gate_moves"],
+                   campaign_duel_moves=camp["duel_moves"],
+                   launches_train19=train19_counts[name],
+                   train19_parts={k: v[name]
+                                  for k, v in t19["parts"].items()},
+                   train19_corpus_moves=t19["corpus_moves"],
+                   train19_selfplay_steps=t19["selfplay_steps"],
+                   launches_harvest=harvest_counts[name],
+                   harvest_replayed_moves=hv["moves"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -19,6 +19,13 @@ float32 and rounds its output once to the compute dtype, as flax's
 ``_normalize`` does (one pass over the activations).  The weights are cast
 to the compute dtype once and the copy is kept until a weight changes.
 
+float32 means float32 on a card too: a float32 net's forward on a
+CUDA tensor turns TF32 off for the process's cuDNN convolutions and CUDA
+matmuls (cuDNN's default rounds float32 convolution inputs to TF32's
+10-bit mantissa).  bf16 work is untouched by the switch, and it stays off
+so that the backward pass, which runs after the forward returns, is
+float32 as well.
+
 ``forward(boards, train=True)`` is flax's ``train=True`` apply:
 BatchNorm normalises with the batch's own statistics, the biased
 variance computed in float32 as mean(x²) − mean(x)² (flax's
@@ -177,6 +184,9 @@ class AZNet(nn.Module):
         one's batch (mean, var) in ``batch_norms`` order; with a ``mesh``
         of several ranks those of the global batch (``_norm``)."""
         stats = [] if train else None
+        if boards.is_cuda and self.compute_dtype is torch.float32:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
         x = boards.to(self.compute_dtype).permute(0, 3, 1, 2)
         h = F.relu(_norm(self.stem_bn, _conv(self.stem_conv, x), stats, mesh))
         for block in self.blocks:

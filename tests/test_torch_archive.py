@@ -17,6 +17,7 @@ from sejonggo_tpu.pipeline import Pipeline as JPipeline
 from sejonggo_torch import config as tcfg
 from sejonggo_torch.pipeline import Pipeline
 from test_torch_pipeline import micro_config
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 
 def _tree(base):

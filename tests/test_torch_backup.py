@@ -31,6 +31,7 @@ from sejonggo_torch.nets import (AZNet, from_jax_variables, make_predict_fn,
                                  seeded_flax_variables)
 from sejonggo_torch.search import mcts as TM
 from sejonggo_torch.search import tree as TT
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 ATOL_W = 1e-4   # value sums of up to 64 net values, each within ~1e-6
 NET = NetConfig(blocks=2, filters=16, value_hidden=16, compute_dtype="float32")

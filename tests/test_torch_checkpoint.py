@@ -23,6 +23,7 @@ from sejonggo_torch.config import strength_9x9_xl
 from sejonggo_torch.learn import CheckpointStore, restore
 from sejonggo_torch.learn import msgpack as port_msgpack
 from sejonggo_torch.nets import AZNet, from_jax_variables, make_predict_fn
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 MODELS = pathlib.Path(__file__).resolve().parents[1] / \
     "runs/strength_r5b/sp_models"

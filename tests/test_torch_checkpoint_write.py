@@ -25,6 +25,7 @@ from sejonggo_torch.learn import (CheckpointStore, init_train_state,
                                   make_optimizer, make_train_step, packb)
 from sejonggo_torch.learn.checkpoint import state_tree
 from sejonggo_torch.nets import AZNet, from_jax_variables
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 MODELS = pathlib.Path(__file__).resolve().parents[1] / \
     "runs/strength_r5b/sp_models"

@@ -16,6 +16,7 @@ from sejonggo_tpu.search import mcts as JM
 from sejonggo_tpu.search import tree as JT
 from sejonggo_torch.search import mcts as TM
 from sejonggo_torch.search import tree as TT
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 
 def jax_gumbel(r_decide, b, a):

@@ -19,6 +19,7 @@ from sejonggo_tpu.nets import make_predict_fn as j_make_predict
 from sejonggo_torch.config import NetConfig, strength_9x9_xl
 from sejonggo_torch.nets import (AZNet, from_jax_variables, make_predict_fn,
                                  seeded_flax_variables)
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 F32_ATOL = 1e-4
 

@@ -19,6 +19,7 @@ from sejonggo_torch import config as tcfg
 from sejonggo_torch.goenv import coords as tcoords
 from sejonggo_torch.goenv import engine as T
 from sejonggo_torch.goenv.positions import choose_actions, random_positions
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 # tests/test_engine_vs_reference.py: B41 captures W40, a simple ko at 40

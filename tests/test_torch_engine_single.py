@@ -13,6 +13,7 @@ import torch
 from sejonggo_tpu.goenv import engine as J
 from sejonggo_tpu.io.sgf import parse_sgf
 from sejonggo_torch.goenv import engine as T
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")

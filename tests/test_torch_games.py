@@ -23,6 +23,7 @@ from sejonggo_torch.actor import play_games
 from sejonggo_torch.config import NetConfig, SearchConfig
 from sejonggo_torch.nets import (AZNet, from_jax_variables, make_predict_fn,
                                  seeded_flax_variables)
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 FLOAT_ATOL = 1e-5
 FLOAT_FIELDS = ("values", "policy_targets")

@@ -533,6 +533,32 @@ def no_tf32():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+@pytest.mark.gpu
+def test_float32_net_turns_tf32_off(cuda):
+    """A float32 net's forward on the card turns TF32 off for cuDNN and
+    CUDA matmuls, so its outputs agree with the CPU's to float32
+    rounding even when the process had TF32 on."""
+    cfg = NetConfig(blocks=2, filters=24, value_hidden=24,
+                    compute_dtype="float32")
+    sd = from_jax_variables(seeded_flax_variables(9, cfg, 5))
+    rng = np.random.RandomState(5)
+    boards = (rng.rand(64, 9, 9, 17) < 0.3).astype(np.float32)
+    outs = []
+    with no_tf32():
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        for dev in ("cpu", cuda):
+            net = AZNet.from_config(9, cfg)
+            net.load_state_dict(sd)
+            outs.append(make_predict_fn(net.to(dev))(
+                torch.from_numpy(boards).to(dev)))
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+    for cpu, card in zip(*outs):
+        np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(),
+                                   atol=2e-5, rtol=1e-4)
+
+
 def _rank_train_steps(batch, seed):
     """Rank side of the two-rank card test (``parallel.launch``): two
     float32 steps of a seeded 2x16 net on this rank's half of ``batch``

@@ -23,6 +23,7 @@ from sejonggo_torch.io import kgs as T
 from sejonggo_torch.learn import restore
 from sejonggo_torch.pipeline import Pipeline
 from test_torch_pipeline import TOL, _events, micro_config
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 GAME = "(;GM[1]FF[4]SZ[9]KM[5.5]RE[B+2.5];B[cc];W[gg];B[cf];W[];B[ff])"

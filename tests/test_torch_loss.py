@@ -9,6 +9,7 @@ import torch
 
 from sejonggo_tpu.nets import az_loss as j_az_loss
 from sejonggo_torch.nets import az_loss
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 

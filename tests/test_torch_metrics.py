@@ -9,6 +9,7 @@ import torch
 from sejonggo_torch.config import NetConfig
 from sejonggo_torch.nets import AZNet, make_predict_fn
 from sejonggo_torch.utils.metrics import profile_trace
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 
 def _forward():

@@ -18,6 +18,7 @@ from sejonggo_tpu.nets import make_predict_fn as j_make_predict
 from sejonggo_torch.config import NetConfig
 from sejonggo_torch.nets import (AZNet, dummy_predict_fn, from_jax_variables,
                                  make_predict_fn, seeded_flax_variables)
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 

@@ -16,6 +16,7 @@ from sejonggo_tpu.ops.flood import flood_fixpoint_pallas
 from sejonggo_tpu.ops.gostep import step_legal_pallas
 from sejonggo_torch import ops
 from sejonggo_torch.goenv.positions import random_positions
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

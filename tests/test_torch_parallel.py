@@ -43,6 +43,17 @@ THRESHOLDS = [np.nan, 2.0, np.nan, np.nan]    # game 1 resigns at once
 CONT_STEPS = 18
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test process's own torch work on one thread, as the ranks run
+    (OMP_NUM_THREADS=1): the test workers share the machine's cores.
+    Defined here, not imported: the ranks load this module without JAX."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _net_cfg():
     from sejonggo_torch.config import NetConfig
 

@@ -23,6 +23,7 @@ from sejonggo_tpu.pipeline import Pipeline as JPipeline
 from sejonggo_torch import config as tcfg
 from sejonggo_torch.learn import restore
 from sejonggo_torch.pipeline import Pipeline
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

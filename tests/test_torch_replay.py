@@ -8,6 +8,7 @@ from sejonggo_tpu.actor.selfplay import GameBatch as JGameBatch
 from sejonggo_tpu.learn import replay as jreplay
 from sejonggo_torch.actor import GameBatch
 from sejonggo_torch.learn import replay as treplay
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 SIZE, A = 9, 82
 

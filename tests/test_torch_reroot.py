@@ -23,6 +23,7 @@ from sejonggo_tpu.search import tree as JT
 from sejonggo_torch.goenv.positions import choose_actions
 from sejonggo_torch.search import mcts as TM
 from sejonggo_torch.search import tree as TT
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 
 def _boards(size, b, moves, seed):

@@ -7,6 +7,7 @@ import pytest
 from sejonggo_tpu.actor.resign import ResignCalibrator as JCalibrator
 from sejonggo_tpu.actor.selfplay import GameBatch as JGameBatch
 from sejonggo_torch.actor import GameBatch, ResignCalibrator
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 
 def _batch(cls, rng, t, b):

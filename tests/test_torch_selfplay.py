@@ -20,6 +20,7 @@ from sejonggo_tpu.search import new_tree_batch as j_new_tree
 from sejonggo_torch.actor import init_state, make_move_step
 from sejonggo_torch.config import SearchConfig
 from sejonggo_torch.nets import dummy_predict_fn
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

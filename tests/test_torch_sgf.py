@@ -17,6 +17,7 @@ from sejonggo_torch.config import SearchConfig
 from sejonggo_torch.io import h5data as th5
 from sejonggo_torch.io import sgf as tsgf
 from sejonggo_torch.nets import dummy_predict_fn
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CORPUS = REPO / "runs/full19_r5/corpus"

@@ -8,6 +8,7 @@ import torch
 
 from sejonggo_tpu.goenv import symmetry as J
 from sejonggo_torch.goenv import symmetry as T
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("size", [5, 9, 19])

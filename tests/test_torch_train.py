@@ -36,6 +36,7 @@ from sejonggo_torch.nets import (AZNet, batch_norms, fold_batch_stats,
                                  from_jax_variables, init_variables,
                                  seeded_flax_variables, to_jax_params,
                                  to_jax_variables)
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 LR, MOMENTUM, L2 = 2e-2, 0.9, 1e-4

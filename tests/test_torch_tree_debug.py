@@ -24,6 +24,7 @@ from sejonggo_torch.nets import dummy_predict_fn as t_dummy
 from sejonggo_torch.search import (advance_root_batch, decide_batch,
                                    new_tree_batch, run_search)
 from sejonggo_torch.search import tree_debug as T
+from test_torch_heuristics import one_torch_thread  # noqa: F401
 
 SIZE, CAP, B = 9, 64, 3
 
